@@ -8,14 +8,21 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
 1. environment: toolchain and card; exits non-zero without CUDA;
 2. build: the hand-written kernels from ``csrc/`` (nvcc, sm_90a);
 3. kernels: each kernel against its plain PyTorch version at the SD 1.x
-   walk's shapes, bf16 and f32, with max abs error and times (CUDA events);
-   bf16 attention also against the output's own scale, beside what that
-   check reads for two planted faults;
+   walk's shapes, bf16 and f32, with max abs error and times (CUDA events):
+   the kernel's, the plain version's, one PyTorch library call's computing
+   the same function (``library``: ``scaled_dot_product_attention``, or
+   ``group_norm`` then ``silu``; a yardstick the port never calls), and the
+   bound: the least time the card could take (``bound``, by operations or
+   by bytes) and the kernel's share of it.  bf16 attention is also held
+   against the output's own scale, beside what that check reads for two
+   planted faults.  Also the host time of a bf16 attention call's TMA
+   tensor maps;
 4. golden: the full-geometry SD 1.x UNet and VAE decoder in fp32 (TF32 off)
    against ``tests/goldens/sd1_full_geometry.npz``, which the JAX package's
    reference produced;
 5. main path: ``walk()`` at 512², pndm-50, CFG 7.5, batch 8, two dispatches,
-   on random bf16 weights; the kernels' launch counts come from this run.
+   on random bf16 weights; the kernels' launch counts come from this run,
+   with the launches of each shape.
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -24,6 +31,8 @@ the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import importlib.util
 import json
 import shutil
@@ -48,6 +57,12 @@ TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
 # it would pass a kernel that drops a key tile.  Limits: max|out-ref| over
 # max|ref|, and ||out-ref|| over ||ref||.
 ATTN_SCALED = dict(max_ratio=0.05, rel_l2=1e-2)
+# One H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
+# operations/s by element size (bf16 on the tensor cores, fp32 on the FMA
+# units) and device-memory bytes/s.  bound = max(operations/peak,
+# bytes/rate), each input read once and each output written once.
+PEAK_OPS = {2: 989e12, 4: 67e12}
+PEAK_BYTES = 3.35e12
 
 # (B, Sq, Sk, H, D): CFG batch 16 at 512² (UNet self/cross) and the VAE
 # decoder's mid-block attention at batch 8
@@ -99,24 +114,45 @@ def phase_env(torch):
     print("gpu:", gpu_line(), "| devices:", torch.cuda.device_count())
 
 
+# Hopper instructions the kernels must contain: warpgroup MMA, TMA tensor
+# loads, mbarrier syncs, register reallocation and cluster barriers
+SASS_NEEDED = ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "UCGABAR_ARV")
+
+
 def phase_build():
     from stable_diffusion_videos_tpu_torch.ops import build
     t0 = time.perf_counter()
-    build.library()
+    lib = build.library()
     WORK.mkdir(parents=True, exist_ok=True)
     (WORK / "ptxas.log").write_text(build.library.ptxas_log)
     for line in build.library.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "C7514" in line:
             print("  ptxas:", line.strip())
     print(f"build: nvcc {build.library.build_seconds:.1f} s, load "
           f"{time.perf_counter() - t0:.1f} s")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sass.count(op) for op in SASS_NEEDED}
+    print(f"sass: {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"the kernels lack Hopper instructions: {counts}")
 
 
-def time_ms(torch, fn, warmup: int = 2, reps: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
+def time_ms(torch, fn, warmup: int = 2, window_ms: float = 20.0) -> float:
+    """Mean ms a call over back-to-back calls between two CUDA events: 5
+    to 200 of them, as many as fill about window_ms (a call of tens of
+    microseconds is otherwise read off a handful of launches)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    for _ in range(warmup):
+        fn()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = int(min(200, max(5, window_ms // max(start.elapsed_time(end),
+                                                1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -164,17 +200,62 @@ def check_attn_scaled(name, out, q, k, v, ref, reference) -> str:
     return text
 
 
+def attn_bound(b, sq, sk, h, d, elem_bytes) -> tuple[float, str]:
+    """Least time (ms) for one attention call and what sets it: q·kᵀ and
+    p·v are 4·B·H·Sq·Sk·D operations at the type's peak; q, k, v read once
+    and o written once."""
+    ops = 4.0 * b * h * sq * sk * d
+    nbytes = elem_bytes * b * h * d * (2 * sq + 2 * sk)
+    return bound_ms(ops, nbytes, PEAK_OPS[elem_bytes])
+
+
+def gn_bound(shape, silu, elem_bytes) -> tuple[float, str]:
+    """Least time (ms) for one GroupNorm(+SiLU) call: x read once, y written
+    once, scale and bias (fp32) read once; about 5 operations an element
+    (Welford update, one multiply-add) plus 4 for SiLU, on fp32 units."""
+    n = float(np.prod(shape))
+    nbytes = 2 * elem_bytes * n + 2 * 4 * shape[1]
+    return bound_ms((5 + 4 * silu) * n, nbytes, PEAK_OPS[4])
+
+
+def bound_ms(ops, nbytes, peak_ops) -> tuple[float, str]:
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
 def phase_kernels(torch):
+    """Each kernel against its plain version, and its time beside the plain
+    version's, one PyTorch library call's (the yardstick; the port never
+    calls it) and the bound."""
+    import torch.nn.functional as F
+
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
         fused_groupnorm_silu, groupnorm_reference)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    summary = {"flash_attention": dict(err=0.0, ms=0.0, plain_ms=0.0),
-               "groupnorm_silu": dict(err=0.0, ms=0.0, plain_ms=0.0)}
+    summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                          bound_ms=0.0, bound_by={})
+               for name in ("flash_attention", "groupnorm_silu")}
+
+    def record(name, text, dt, err, ms, pms, lms, bound):
+        b_ms, b_by = bound
+        print(f"{text}: max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
+              f"{pms:.4f} ms library {lms:.4f} ms bound {b_ms:.4f} ms "
+              f"({b_by}) share of bound {b_ms / ms:.3f}")
+        s = summary[name]
+        s["err"] = max(s["err"], err)
+        if dt == torch.bfloat16:
+            s["ms"] += ms
+            s["plain_ms"] += pms
+            s["library_ms"] += lms
+            s["bound_ms"] += b_ms
+            s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
+
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
+        eb = torch.finfo(dt).bits // 8
         for b, sq, sk, h, d in ATTN_SHAPES:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
             k = torch.randn(b, sk, h, d, device=dev, generator=g).to(dt)
@@ -188,14 +269,23 @@ def phase_kernels(torch):
             del out, ref
             ms = time_ms(torch, lambda: flash_attention(q, k, v))
             pms = time_ms(torch, lambda: flash_attention_reference(q, k, v))
-            print(f"{name}: max_abs_err {err:.3e} kernel {ms:.3f} ms "
-                  f"plain {pms:.3f} ms{scaled}")
-            s = summary["flash_attention"]
-            s["err"] = max(s["err"], err)
-            if dt == torch.bfloat16:
-                s["ms"] += ms
-                s["plain_ms"] += pms
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qh, kh, vh))
+            del qh, kh, vh
+            record("flash_attention", name + scaled, dt, err, ms, pms, lms,
+                   attn_bound(b, sq, sk, h, d, eb))
             del q, k, v
+        if dt == torch.bfloat16:
+            from stable_diffusion_videos_tpu_torch.ops import build
+            q = torch.zeros(16, 4096, 8, 40, device=dev, dtype=dt)
+            us = build.library().sdv_tensor_map_encode_us(q.data_ptr(), 16,
+                                                          4096, 8, 40, 1000)
+            if us < 0:
+                raise AssertionError("tensor map encoding failed")
+            print(f"host: a bf16 attention call encodes its three TMA "
+                  f"tensor maps in {us:.2f} us")
+            del q
         for shape, eps, silu in GN_SHAPES:
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
             scale = torch.randn(shape[1], device=dev, generator=g)
@@ -209,13 +299,13 @@ def phase_kernels(torch):
                 x, scale, bias, 32, eps, silu))
             pms = time_ms(torch, lambda: groupnorm_reference(
                 x, scale, bias, 32, eps, silu))
-            print(f"{name}: max_abs_err {err:.3e} kernel {ms:.3f} ms "
-                  f"plain {pms:.3f} ms")
-            s = summary["groupnorm_silu"]
-            s["err"] = max(s["err"], err)
-            if dt == torch.bfloat16:
-                s["ms"] += ms
-                s["plain_ms"] += pms
+            # the library call takes its weights in x's dtype
+            sx, bx = scale.to(dt), bias.to(dt)
+            lms = time_ms(torch, (lambda: F.silu(F.group_norm(
+                x, 32, sx, bx, eps))) if silu else (lambda: F.group_norm(
+                    x, 32, sx, bx, eps)))
+            record("groupnorm_silu", name, dt, err, ms, pms, lms,
+                   gn_bound(shape, silu, eb))
             del x
         torch.cuda.empty_cache()
     return summary
@@ -289,6 +379,32 @@ def png_size(path: Path) -> tuple[int, int]:
     return struct.unpack(">II", head[16:24])
 
 
+@contextlib.contextmanager
+def calls_by_shape():
+    """Counts the main path's calls of the two kernel wrappers by input
+    shape (the wrappers' own launch counters are left as they are)."""
+    from stable_diffusion_videos_tpu_torch.models import layers
+    from stable_diffusion_videos_tpu_torch.ops import attention
+    counts = collections.Counter()
+    fa, gn = attention.flash_attention, layers.fused_groupnorm_silu
+
+    def fa_counted(q, k, v, scale=None):
+        b, sq, h, d = q.shape
+        counts[f"attn B·H={b * h} Sq={sq} Sk={k.shape[1]} D={d}"] += 1
+        return fa(q, k, v, scale=scale)
+
+    def gn_counted(x, *args, **kwargs):
+        counts[f"groupnorm {tuple(x.shape)}"] += 1
+        return gn(x, *args, **kwargs)
+
+    attention.flash_attention, layers.fused_groupnorm_silu = (fa_counted,
+                                                              gn_counted)
+    try:
+        yield counts
+    finally:
+        attention.flash_attention, layers.fused_groupnorm_silu = fa, gn
+
+
 def phase_main(torch):
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
@@ -313,12 +429,13 @@ def phase_main(torch):
     for f in plains:
         f.calls = 0
     t0 = time.perf_counter()
-    pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
-              seeds=[42, 1337], num_interpolation_steps=16,
-              output_dir=str(WORK), name="chip_smoke_walk", height=512,
-              width=512, num_inference_steps=50, guidance_scale=7.5,
-              batch_size=8, make_video=False)
-    torch.cuda.synchronize()
+    with calls_by_shape() as by_shape:
+        pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
+                  seeds=[42, 1337], num_interpolation_steps=16,
+                  output_dir=str(WORK), name="chip_smoke_walk", height=512,
+                  width=512, num_inference_steps=50, guidance_scale=7.5,
+                  batch_size=8, make_video=False)
+        torch.cuda.synchronize()
     walk_s = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in counters}
     plain_calls = {f.__name__: f.calls for f in plains}
@@ -326,6 +443,8 @@ def phase_main(torch):
     sizes = {png_size(p) for p in pngs}
     print(f"main: walk wrote {len(pngs)} frames of {sizes} in {walk_s:.1f} s;"
           f" launches {launches}; plain calls {plain_calls}")
+    for key, n in sorted(by_shape.items()):
+        print(f"main: {key}: {n} launches in the walk's 2 dispatches")
     if len(pngs) != 16 or sizes != {(512, 512)}:
         raise AssertionError(f"expected 16 frames of 512x512, got "
                              f"{len(pngs)} of {sizes}")
@@ -397,7 +516,10 @@ def main():
          "launches": launches["fused_groupnorm_silu"]}]
     for k in kernels:
         s = summary[k["name"]]
-        k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"])
+        k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
+                 bound_ms=s["bound_ms"],
+                 bound_by=max(s["bound_by"], key=s["bound_by"].get),
+                 library_ms=s["library_ms"])
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,44 +3,66 @@
 // Replaces the TPU kernel stable_diffusion_videos_tpu/ops/flash_attention.py
 // (flash_attention / _flash_kernel): softmax(q kᵀ · scale) v with an online
 // softmax, fp32 running max, sum and accumulator, f32 or bf16 in, output in
-// q's dtype.
+// q's dtype.  q (B, Sq, H, D), k and v (B, Sk, H, D), contiguous.
 //
-// What bounds it on the card: at the UNet's shapes (S=4096, D=40..160) the
-// work is arithmetic (4·S²·D operations per head against O(S·D) bytes), so
-// the limit is the multiply rate.  The S×S scores never reach device memory.
-// Two paths, chosen by dtype and head size (not on failure):
+// What bounds it on the card (bf16, the walk's shapes): the self-attentions
+// at S=4096 and S=1024 by operations (4·S²·D against O(S·D) bytes), every
+// cross-attention (Sk=77) and the small levels by bytes.  At D=40 the
+// softmax's one exp2 per score is the tighter limit in practice: the
+// special-function units do 16 a cycle an SM, so the 2.1G exponentials of
+// the level-0 self-attention (B·H=128, S=4096) take about 0.6 ms, against
+// 0.35 ms for its multiplies at the tensor cores' peak.
+// The S×S scores never reach device memory.  Two paths, chosen by dtype
+// (not on failure):
 //
-// * bf16: the tensor cores through mma.sync m16n8k16 (flash_mma_kernel,
-//   below).  D must be a multiple of 8 (every SD 1.x head: 40, 80, 160, 512;
-//   the Python wrapper zero-pads any other D).  Not yet wgmma/TMA: tiles are
-//   loaded synchronously, one 64-key tile at a time.
-// * f32 (the full-geometry golden check): fp32 FMA units (flash_fwd_kernel),
-//   exact to fp32 rounding.
+// * bf16: flash_wgmma_kernel, below.  Per block one producer warpgroup
+//   and two or three consumer warpgroups of 64 q rows each (setmaxnreg
+//   moves registers from the first to the others).  One producer thread
+//   loads q once and k, v tiles into a ring of shared-memory stages with
+//   TMA (cp.async.bulk.tensor) on mbarriers, so copies overlap the matrix
+//   work.  The consumers run both products on wgmma.mma_async: S = q·kᵀ
+//   with both operands in shared memory, then o += p·v with p from
+//   registers (the S accumulator re-packed as bf16) and v read in its
+//   natural [key][d] layout through the descriptor's transpose bit.  The
+//   online softmax runs in registers in the log2 domain; while one
+//   consumer runs it, another's wgmma keeps the tensor cores busy.
+// * f32: flash_fwd_kernel on the FMA units, exact to fp32 rounding.
 //
-// Both paths:
-// * One block per (batch·head, 64-row q tile, output column chunk).  The
-//   TPU's sequential k grid axis becomes a loop over 64-key tiles inside the
-//   block; nothing is carried between blocks.
-// * D needs no padding to 128 (a TPU lane artefact): q·kᵀ runs over D in
-//   chunks (32 on the FMA path, 16 zero-padded on the mma path).
-// * Wide heads (D=512, the VAE mid-block, one head) split the output into
-//   column chunks across blockIdx.z; each chunk's block recomputes q·kᵀ over
-//   the full D, which keeps the accumulator in registers.
-// * Ragged key tiles (Sk=77 in every cross-attention) are masked to -inf in
-//   the kernel; there is no fallback.
-//
-// FMA path layout: 256 threads as a 16×16 grid.  Each thread owns 4 q rows
-// (tr + 16r) and, for q·kᵀ, 4 keys (tc + 16c); for p·v, DCPT output columns
-// (tc + 16c).  The 16 threads sharing a row sit in one half-warp, so row max
-// and row sum are 4 shuffles.  Operands sit in shared memory as fp32, so
-// every inner-loop read is a conflict-free broadcast.
+// Head sizes: TMA loads every operand in 16-column slabs (32 bytes a row,
+// 32-byte swizzle), one wgmma k step each, and zero-fills columns at and
+// past D.  So the depth is the least instantiated multiple of 16 that holds
+// D (48, 80, 160, 512), never 128 (a TPU lane artefact): D=80 and 160 waste
+// nothing; D=40 runs 48, a sixth of its q·kᵀ and p·v work on zeros.  Other
+// head sizes up to 512 run at the next depth.  Sk=77 (every
+// cross-attention): keys past Sk in the last tile are zero-filled by TMA
+// and masked to -inf here (zero logits are not -inf).  Rows past Sq are
+// zero-filled on load and not stored.  D=512 (the VAE mid-block, one
+// head): the two consumers share the same 64 q rows; each computes q·kᵀ
+// over half the depth, they add their partial scores through shared
+// memory, and each accumulates half of the output columns, so q·kᵀ is
+// computed once.
 
+// cuda.h for CUtensorMap and its enums (types only; see encode_tiled)
+#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <chrono>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// f32 path: fp32 FMA units (the full-geometry golden check runs in fp32).
+// 256 threads as a 16×16 grid.  Each thread owns 4 q rows (tr + 16r) and,
+// for q·kᵀ, 4 keys (tc + 16c); for p·v, DCPT output columns (tc + 16c).  The
+// 16 threads sharing a row sit in one half-warp, so row max and row sum are
+// 4 shuffles.  Operands sit in shared memory as fp32, so every inner-loop
+// read is a conflict-free broadcast.  Wide heads (D=512) split the output
+// into 128-column chunks across blockIdx.z, each recomputing q·kᵀ.
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per tile
@@ -233,34 +255,65 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16 path: tensor cores through mma.sync.m16n8k16 (fp32 accumulate).
-// One block of 4 warps per (batch·head, 64-row q tile, output chunk); each
-// warp owns 16 q rows.  q and k tiles sit in shared memory row-major (rows
-// padded by 8 elements, so the fragment reads are conflict-free); v sits
-// transposed, so a p·v B fragment is one 32-bit read.  The scores of a
-// 64-key tile stay in registers: their C-fragment layout is the A-fragment
-// layout of p·v, so p never touches shared memory.  D is padded to a
-// multiple of 16 with zeros for q·kᵀ; the output is held as NTO 8-column
-// tiles (up to 256 columns a block; D=512 takes two column chunks).
+// bf16 path: TMA + wgmma, warp-specialised (see the note at the top).
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;
-constexpr int MMA_MAX_DC = 256;
-constexpr int LDV = BK + 8;
+constexpr int WG_THREADS = 128;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+using sdv::mbar_arrive;
+using sdv::mbar_expect_tx;
+using sdv::mbar_init;
+using sdv::mbar_wait;
+using sdv::smem_u32;
+
+// one (16 columns × rows) box of a (D, H, S, B) tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int s,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(h), "r"(s), "r"(b) : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// wgmma shared-memory descriptor, 32-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units), layout type 3 (B32)
+__device__ __forceinline__ uint64_t desc_b32(const void* p, uint32_t lbo,
+                                             uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from touching accumulator registers across an
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -268,197 +321,345 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows [r0, r0 + 64) × columns [0, Dp) of a (S, H·D)-strided bf16 tensor into
-// shared memory (row stride ld), zero outside S and D; D is a multiple of 8
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src, int r0,
-                                          int S, long long rs, int D,
-                                          int Dp) {
-  const int vecs = Dp / 8;
-  for (int i = threadIdx.x; i < BQ * vecs; i += MMA_THREADS) {
-    const int row = i / vecs, c8 = (i % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + row < S && c8 < D)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + row) * rs +
-                                            c8);
-    *reinterpret_cast<uint4*>(dst + row * ld + c8) = val;
-  }
-}
+// Tile sizes and shared-memory layout of one instantiation.  DP: head size
+// rounded up to 16 (NS slabs of 16 columns); BQ q rows (64 a consumer) and
+// BN keys a tile; NSTAGE k/v stages; NDWG consumers splitting the depth and
+// the output columns (2 for D=512), else the consumers split the q rows.
+template <int DP_, int BQ_, int BN_, int NSTAGE_, int NDWG_>
+struct FlashCfg {
+  static constexpr int DP = DP_, BQ = BQ_, BN = BN_, NSTAGE = NSTAGE_,
+                       NDWG = NDWG_;
+  static constexpr int NS = DP / 16;
+  static constexpr int NQWG = BQ / 64;      // consumers along q
+  static constexpr int NCWG = NQWG * NDWG;  // consumer warpgroups
+  static constexpr int THREADS = (NCWG + 1) * WG_THREADS;  // + the producer
+  // registers a consumer thread after setmaxnreg: what the producer's
+  // warpgroup gives up (it keeps 24), in steps of 8, at most 240
+  static constexpr int CREGS =
+      (65536 - 24 * WG_THREADS) / (NCWG * WG_THREADS) / 8 * 8 > 240
+          ? 240
+          : (65536 - 24 * WG_THREADS) / (NCWG * WG_THREADS) / 8 * 8;
+  static constexpr int NSW = NS / NDWG;     // slabs a consumer owns
+  static constexpr int NO = DP / NDWG;      // output columns a consumer owns
+  static constexpr int SLAB_Q = BQ * 16;    // elements of one q slab
+  static constexpr int SLAB_KV = BN * 16;   // elements of one k or v slab
+  static constexpr int Q_BYTES = NS * SLAB_Q * 2;
+  static constexpr int KV_BYTES = NS * SLAB_KV * 2;  // one k (or v) tile
+  static constexpr int X_BYTES = NDWG == 2 ? 2 * 64 * BN * 4 : 0;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + NSTAGE * KV_BYTES;
+  static constexpr int X_OFF = V_OFF + NSTAGE * KV_BYTES;
+  static constexpr int BAR_OFF = X_OFF + X_BYTES;
+  // + 1024 to align the base: the swizzled tiles sit on 1024-byte bounds
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * NSTAGE) + 1024;
+  static_assert(NDWG == 1 || NQWG == 1, "consumers split q or the depth");
+  static_assert(NCWG == 2 || NCWG == 3, "the consumer counts measured");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
 
-template <int NTO>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                     int D, int Dp, int DC, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldqk = Dp + 8;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * ldqk;
-  __nv_bfloat16* Vt = Ks + BK * ldqk;  // [NTO*8][LDV], dim-major
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                       int D, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + C::K_OFF);
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + C::V_OFF);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* kempty = kfull + C::NSTAGE;
+  uint64_t* vfull = kempty + C::NSTAGE;
+  uint64_t* vempty = vfull + C::NSTAGE;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * BQ;
+  const int wg = threadIdx.x / WG_THREADS;
+  const int tid = threadIdx.x % WG_THREADS;
+  const int q0 = blockIdx.x * C::BQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int dc0 = blockIdx.z * DC;
-  const long long rs = (long long)H * D;
-  const __nv_bfloat16* qb = q + (long long)b * Sq * rs + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * Sk * rs + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * Sk * rs + (long long)h * D;
-  __nv_bfloat16* ob = o + (long long)b * Sq * rs + (long long)h * D;
+  const int nt = (Sk + C::BN - 1) / C::BN;
+  // consumers with at least one q row inside Sq (with NDWG == 2 both share
+  // the block's rows)
+  const int active =
+      C::NDWG == 2 ? 2 : min(C::NQWG, (Sq - q0 + 63) / 64);
 
-  load_rows(Qs, ldqk, qb, q0, Sq, rs, D, Dp);
-
-  float acc[NTO][4];
-#pragma unroll
-  for (int n = 0; n < NTO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const __nv_bfloat16* qrow = Qs + (warp * 16 + g) * ldqk + 2 * t;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(Ks, ldqk, kb, k0, Sk, rs, D, Dp);
-    for (int i = threadIdx.x; i < BK * NTO; i += MMA_THREADS) {
-      const int j = i / NTO, c8 = (i % NTO) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < Sk && c8 < DC && dc0 + c8 < D)
-        val = *reinterpret_cast<const uint4*>(vb + (long long)(k0 + j) * rs +
-                                              dc0 + c8);
-      const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(c8 + e) * LDV + j] = e8[e];
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < C::NSTAGE; ++s) {
+      mbar_init(kfull + s, 1);
+      mbar_init(vfull + s, 1);
+      mbar_init(kempty + s, 4 * active);  // lane 0 of each consumer warp
+      mbar_init(vempty + s, 4 * active);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // scores of this warp's 16 rows against the 64 keys: 8 n-tiles
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    for (int kc = 0; kc < Dp; kc += 16) {
-      const uint32_t a[4] = {lds32(qrow + kc), lds32(qrow + 8 * ldqk + kc),
-                             lds32(qrow + kc + 8),
-                             lds32(qrow + 8 * ldqk + kc + 8)};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* krow = Ks + (n * 8 + g) * ldqk + kc + 2 * t;
-        mma_16816(s[n], a, lds32(krow), lds32(krow + 8));
+  if (wg == C::NCWG) {
+    // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == 0) {
+      mbar_expect_tx(qbar, C::Q_BYTES);
+      for (int s = 0; s < C::NS; ++s)
+        tma_load(Qs + s * C::SLAB_Q, &tm_q, qbar, 16 * s, h, q0, b);
+      for (int j = 0; j < nt; ++j) {
+        const int st = j % C::NSTAGE, ph = (j / C::NSTAGE) & 1;
+        __nv_bfloat16* kt = Ks + st * (C::NS * C::SLAB_KV);
+        __nv_bfloat16* vt = Vs + st * (C::NS * C::SLAB_KV);
+        mbar_wait(kempty + st, ph ^ 1);
+        mbar_expect_tx(kfull + st, C::KV_BYTES);
+        for (int s = 0; s < C::NS; ++s)
+          tma_load(kt + s * C::SLAB_KV, &tm_k, kfull + st, 16 * s, h,
+                   j * C::BN, b);
+        mbar_wait(vempty + st, ph ^ 1);
+        mbar_expect_tx(vfull + st, C::KV_BYTES);
+        for (int s = 0; s < C::NS; ++s)
+          tma_load(vt + s * C::SLAB_KV, &tm_v, vfull + st, 16 * s, h,
+                   j * C::BN, b);
       }
     }
+  } else if (wg < active) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::CREGS));
+    const int qw = wg % C::NQWG, dw = wg / C::NQWG;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    constexpr int NSA = C::BN / 2;  // score registers a thread
+    constexpr int NOA = C::NO / 2;  // output registers a thread
+    float o_acc[NOA];
+#pragma unroll
+    for (int i = 0; i < NOA; ++i) o_acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+    const bool ragged = Sk % C::BN != 0;
 
-    // online softmax in the log2 domain; each row lives in 4 lanes
-    float mx[2] = {-INFINITY, -INFINITY};
+    // One tile at a time: the consumers interleave on the SM, so one's
+    // softmax overlaps another's wgmma.  (Issuing the next tile's q·kᵀ
+    // before this tile's p·v, FA3-style, measured slower here.)
+    mbar_wait(qbar, 0);
+    for (int j = 0; j < nt; ++j) {
+      const int st = j % C::NSTAGE, ph = (j / C::NSTAGE) & 1;
+      const __nv_bfloat16* kt = Ks + st * (C::NS * C::SLAB_KV);
+      const __nv_bfloat16* vt = Vs + st * (C::NS * C::SLAB_KV);
+
+      // S = q·kᵀ over this consumer's slabs of the depth
+      float s_acc[NSA];
+      mbar_wait(kfull + st, ph);
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * t + (e & 1);
-        s[n][e] = key < Sk ? s[n][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      for (int s = 0; s < C::NSW; ++s) {
+        const int slab = dw * C::NSW + s;
+        sdv::Wgmma<C::BN>::ss(
+            s_acc, desc_b32(Qs + slab * C::SLAB_Q + qw * 64 * 16, 16, 256),
+            desc_b32(kt + slab * C::SLAB_KV, 16, 256), s > 0);
       }
-    float alpha[2];
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s_acc);
+      if (lane == 0) mbar_arrive(kempty + st);
+
+      if constexpr (C::NDWG == 2) {
+        // add the other consumer's partial scores (same rows, other half
+        // of the depth); a + b == b + a, so both hold identical sums
+        float4* xch = reinterpret_cast<float4*>(smem + C::X_OFF);
+        float4* mine = xch + wg * (NSA / 4) * WG_THREADS;
+        const float4* other = xch + (1 - wg) * (NSA / 4) * WG_THREADS;
+        named_sync(1, 2 * WG_THREADS);  // the previous tile's reads are done
+#pragma unroll
+        for (int i = 0; i < NSA / 4; ++i)
+          mine[i * WG_THREADS + tid] =
+              make_float4(s_acc[4 * i], s_acc[4 * i + 1], s_acc[4 * i + 2],
+                          s_acc[4 * i + 3]);
+        named_sync(2, 2 * WG_THREADS);
+#pragma unroll
+        for (int i = 0; i < NSA / 4; ++i) {
+          const float4 x = other[i * WG_THREADS + tid];
+          s_acc[4 * i] += x.x;
+          s_acc[4 * i + 1] += x.y;
+          s_acc[4 * i + 2] += x.z;
+          s_acc[4 * i + 3] += x.w;
+        }
+      }
+
+      // online softmax, log2 domain; this thread holds rows g and g + 8 of
+      // its warp's 16, keys 8c + 2·t4 + {0, 1} of every 8-key group c
+      if (ragged && j == nt - 1) {
+#pragma unroll
+        for (int i = 0; i < NSA; ++i) {
+          const int key = j * C::BN + 8 * (i / 4) + 2 * t4 + (i & 1);
+          if (key >= Sk) s_acc[i] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < NSA; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s_acc[i]);
+      float alpha[2], mscaled[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);  // finite: key j·BN < Sk
+        alpha[r] = ex2((m_run[r] - m_new) * scale_log2);
+        m_run[r] = m_new;
+        mscaled[r] = m_new * scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < NSA; ++i) {
+        const int r = (i >> 1) & 1;
+        s_acc[i] = ex2(fmaf(s_acc[i], scale_log2, -mscaled[r]));
+        rsum[r] += s_acc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rsum[r];
+#pragma unroll
+      for (int i = 0; i < NOA; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+
+      // o += p·v: p from registers (the scores re-packed as bf16 pairs in
+      // the wgmma A layout), 16 keys a step; v MN-major (columns
+      // contiguous): atoms of 16 columns BN·32 bytes apart (leading
+      // offset), 8-key groups 256 bytes apart (stride offset)
+      uint32_t pa[C::BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s_acc[8 * kk], s_acc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(s_acc[8 * kk + 2], s_acc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(s_acc[8 * kk + 4], s_acc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(s_acc[8 * kk + 6], s_acc[8 * kk + 7]);
+      }
+      mbar_wait(vfull + st, ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk)
+        sdv::Wgmma<C::NO>::rs(
+            o_acc, pa[kk],
+            desc_b32(vt + dw * C::NSW * C::SLAB_KV + kk * 16 * 16,
+                     C::SLAB_KV * 2, 256));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o_acc);
+      if (lane == 0) mbar_arrive(vempty + st);
+    }
+
+    // normalise and store this consumer's rows and columns
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);  // key k0 is always valid
-      alpha[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];  // this lane's share of the row sum
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
+    const long long rs = (long long)H * D;
+    __nv_bfloat16* ob = o + (long long)b * Sq * rs + (long long)h * D;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + qw * 64 + 16 * warp + g + 8 * r;
+      if (qi >= Sq) continue;
+      const float inv = 1.f / l_run[r];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - m[e >> 1]);
-        l[e >> 1] += s[n][e];
+      for (int c = 0; c < C::NO / 8; ++c) {
+        const int col = dw * C::NO + 8 * c + 2 * t4;  // even; D % 8 == 0
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(ob + (long long)qi * rs + col) =
+              pack_bf16(o_acc[4 * c + 2 * r] * inv,
+                        o_acc[4 * c + 2 * r + 1] * inv);
       }
-#pragma unroll
-    for (int n = 0; n < NTO; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // p·v: the scores' C fragments are p's A fragments, 16 keys at a time
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const uint32_t a[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                             pack_bf16(s[2 * j][2], s[2 * j][3]),
-                             pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                             pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NTO; ++n) {
-        const __nv_bfloat16* vrow = Vt + (n * 8 + g) * LDV + 16 * j + 2 * t;
-        mma_16816(acc[n], a, lds32(vrow), lds32(vrow + 8));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + warp * 16 + g + 8 * r;
-    if (qi >= Sq) continue;
-    const float inv = 1.f / l[r];
-#pragma unroll
-    for (int n = 0; n < NTO; ++n) {
-      const int col = n * 8 + 2 * t;  // even; D is a multiple of 8
-      if (col < DC && dc0 + col < D)
-        *reinterpret_cast<uint32_t*>(ob + (long long)qi * rs + dc0 + col) =
-            pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
     }
   }
 }
 
-template <int NTO>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int D, int DC, float scale_log2,
-               cudaStream_t stream) {
-  const int Dp = (D + 15) / 16 * 16;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      ((size_t)(BQ + BK) * (Dp + 8) + (size_t)NTO * 8 * LDV);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<NTO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, B * H, (D + DC - 1) / DC);
-  flash_mma_kernel<NTO><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Sk, H, D, Dp, DC, scale_log2);
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function.  It is fetched through
+// the runtime's cudaGetDriverEntryPoint, so the library links nothing but
+// the CUDA runtime that nvcc adds (no -lcuda).
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// tensor map of a (B, S, H, D) bf16 tensor as dims (D, H, S, B), loaded in
+// boxes of 16 columns × rows positions (one head, one item); zero fill out
+// of bounds
+int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
+               int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)S * H * D * 2};
+  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <class C>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
+                 int Sq, int Sk, int H, int D, float scale_log2,
+                 cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_map(&tq, q, B, Sq, H, D, C::BQ);
+  if (err == 0) err = encode_map(&tk, k, B, Sk, H, D, C::BN);
+  if (err == 0) err = encode_map(&tv, v, B, Sk, H, D, C::BN);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
+  flash_wgmma_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, D, scale_log2);
   return (int)cudaGetLastError();
 }
 
-int dispatch_mma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int H, int D, float scale_log2,
-                 cudaStream_t stream) {
-  const int DC = D <= MMA_MAX_DC ? D : MMA_MAX_DC;
-  const int tiles = (DC + 7) / 8;
-#define SDV_MMA(N)                                                          \
-  if (tiles <= N)                                                           \
-    return launch_mma<N>(q, k, v, o, B, Sq, Sk, H, D, DC, scale_log2, stream);
-  SDV_MMA(2) SDV_MMA(4) SDV_MMA(5) SDV_MMA(8) SDV_MMA(10) SDV_MMA(16)
-  SDV_MMA(20) SDV_MMA(32)
-#undef SDV_MMA
+// the head size rounded up to an instantiated depth (SD 1.x's heads are 40,
+// 80, 160 and 512); 0 if above 512
+int padded_depth(int D) {
+  for (int dp : {48, 80, 160, 512})
+    if (D <= dp) return dp;
+  return 0;
+}
+
+int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
+                   int B, int Sq, int Sk, int H, int D, float scale_log2,
+                   cudaStream_t stream) {
+  switch (padded_depth(D)) {
+#define SDV_FA(DP, BQ, BN, NSTAGE, NDWG)                                  \
+  case DP:                                                                \
+    return launch_wgmma<FlashCfg<DP, BQ, BN, NSTAGE, NDWG>>(              \
+        q, k, v, o, B, Sq, Sk, H, D, scale_log2, stream);
+    // three consumers where their registers allow it (measured faster than
+    // two), two at D=160 (the accumulators need 240 registers a thread)
+    SDV_FA(48, 192, 128, 2, 1) SDV_FA(80, 192, 128, 2, 1)
+    SDV_FA(160, 128, 128, 2, 1) SDV_FA(512, 64, 64, 1, 2)
+#undef SDV_FA
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all contiguous and
-// of one dtype; bf16 needs D % 8 == 0.  Returns a cudaError_t value
-// (0 = launched).
+// of one dtype; bf16 needs D % 8 == 0, D <= 512 and 16-byte aligned
+// pointers.  Returns a cudaError_t value (0 = launched).
 extern "C" int sdv_flash_attention(const void* q, const void* k,
                                    const void* v, void* o, int B, int Sq,
                                    int Sk, int H, int D, float scale,
@@ -470,8 +671,22 @@ extern "C" int sdv_flash_attention(const void* q, const void* k,
   if (dtype == sdv::kFloat32)
     return dispatch(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
   if (dtype == sdv::kBFloat16 && D % 8 == 0)
-    return dispatch_mma(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
+    return dispatch_wgmma(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Host microseconds a bf16 call spends encoding its three tensor maps
+// (mean over `reps` encodings of a map of the (B, S, H, D) bf16 tensor at
+// `ptr`), for the record of host cost.
+extern "C" double sdv_tensor_map_encode_us(const void* ptr, int B, int S,
+                                           int H, int D, int reps) {
+  CUtensorMap map;
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int i = 0; i < reps; ++i)
+    if (encode_map(&map, ptr, B, S, H, D, 128) != 0) return -1.0;
+  const std::chrono::duration<double, std::micro> dt =
+      std::chrono::steady_clock::now() - t0;
+  return 3.0 * dt.count() / reps;
 }
 
 extern "C" const char* sdv_error_string(int err) {

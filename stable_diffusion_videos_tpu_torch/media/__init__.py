@@ -1,2 +1,1 @@
-"""Frame files (PNG) for the walk; video muxing reuses the JAX package's
-host-only ``media/video.py``."""
+"""Frame files (PNG) and video assembly for the walk (host only)."""

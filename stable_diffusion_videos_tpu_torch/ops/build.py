@@ -1,7 +1,11 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The build runs at the
+The sources compile with ``nvcc`` for ``sm_90a``, one ``nvcc`` a source,
+all started together, and link into one shared library with a plain C
+interface, loaded with ``ctypes``.  Nothing beyond the CUDA
+runtime is linked: the one driver-API function the kernels use
+(``cuTensorMapEncodeTiled``, for TMA) is fetched at run time through
+``cudaGetDriverEntryPoint``.  The build runs at the
 first call that needs a kernel, into ``_build/<hash of the sources>/``
 beside the package (listed in ``.gitignore``), and uses nothing but the
 repository's sources.  No build happens at import: the CPU test suite
@@ -21,8 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
@@ -54,24 +59,40 @@ def library() -> ctypes.CDLL:
     library.build_seconds, library.ptxas_log = 0.0, ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libsdv_kernels.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+        # names of this process: a concurrent build never loads a
+        # half-written library
+        tag = os.getpid()
+        tmp = out_dir / f"libsdv_kernels.{tag}.so"
+        nvcc = _nvcc()
+        cus = sorted(CSRC.glob("*.cu"))
+        objs = [out_dir / f"{cu.stem}.{tag}.o" for cu in cus]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj),
+                                   str(cu)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cu, obj in zip(cus, objs)]
+        library.ptxas_log = "".join(p.communicate()[0] for p in procs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            library.ptxas_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode != 0 else []
         library.build_seconds = time.perf_counter() - t0
-        library.ptxas_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
                                f"{library.ptxas_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.sdv_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _F, _I, _P]
     lib.sdv_flash_attention.restype = _I
-    lib.sdv_groupnorm_scratch_floats.argtypes = [_I, _I, _LL, _I]
-    lib.sdv_groupnorm_scratch_floats.restype = _LL
-    lib.sdv_groupnorm_silu.argtypes = [_P, _P, _P, _P, _P, _I, _I, _LL, _I,
+    lib.sdv_tensor_map_encode_us.argtypes = [_P, _I, _I, _I, _I, _I]
+    lib.sdv_tensor_map_encode_us.restype = ctypes.c_double
+    lib.sdv_groupnorm_silu.argtypes = [_P, _P, _P, _I, _P, _I, _I, _LL, _I,
                                        _F, _I, _I, _P]
     lib.sdv_groupnorm_silu.restype = _I
     lib.sdv_error_string.argtypes = [_I]

@@ -34,7 +34,8 @@ flash_attention_reference.calls = 0
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None) -> torch.Tensor:
     """Non-causal softmax(q·kᵀ·scale)·v; scale defaults to ``D**-0.5``.
-    Any Sk (ragged key tiles are masked in the kernel) and any D."""
+    Any Sk (ragged key tiles are masked in the kernel); on the card any D
+    in float32 and D <= 512 in bfloat16."""
     b, sq, h, d = q.shape
     if k.shape[0] != b or k.shape[2:] != (h, d) or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
@@ -45,15 +46,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no attention kernel for device {q.device}")
+    if q.dtype == torch.bfloat16 and d > 512:
+        raise ValueError(f"the bf16 attention kernel takes D <= 512, got {d}")
     lib = build.library()
     code = build.dtype_code(q)
     scale = float(scale) if scale is not None else d ** -0.5
-    # the bf16 (tensor-core) path reads 8 columns at a time: zero columns
+    # the bf16 (TMA) path needs rows of a multiple of 16 bytes: zero columns
     # add nothing to q·kᵀ, and give output columns that are cut off below
     pad = -d % 8 if q.dtype == torch.bfloat16 else 0
     if pad:
         q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
-    # contiguous, and 16-byte aligned for the bf16 path's vector loads
+    # contiguous, and 16-byte aligned for the bf16 path's TMA loads
     q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
                else t.clone(memory_format=torch.contiguous_format)
                for t in (q, k, v))

@@ -50,22 +50,27 @@ def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
         return groupnorm_reference(x, scale, bias, num_groups, eps, silu)
     if x.device.type != "cuda":
         raise ValueError(f"no GroupNorm kernel for device {x.device}")
+    if c // num_groups > 512:
+        raise ValueError(f"the GroupNorm kernel takes at most 512 channels a "
+                         f"group, got {c // num_groups}")
     lib = build.library()
     code = build.dtype_code(x)
     x = x.contiguous()
     hw = x.numel() // (n * c)
-    scale32 = scale.detach().to(x.device, torch.float32).contiguous()
-    bias32 = bias.detach().to(x.device, torch.float32).contiguous()
-    if scale32.numel() != c or bias32.numel() != c:
+    if scale.numel() != c or bias.numel() != c:
         raise ValueError("scale and bias must have one value per channel")
+    # the kernel reads fp32 or bf16 weights as they are (the model's are in
+    # its dtype); any other dtype, or a pair of two dtypes, goes as fp32
+    w_dtype = scale.dtype if scale.dtype == bias.dtype and scale.dtype in (
+        torch.float32, torch.bfloat16) else torch.float32
+    scale, bias = (w.detach().to(x.device, w_dtype).contiguous()
+                   for w in (scale, bias))
     y = torch.empty_like(x)
-    scratch = torch.empty(
-        lib.sdv_groupnorm_scratch_floats(n, c, hw, num_groups),
-        dtype=torch.float32, device=x.device)
     err = lib.sdv_groupnorm_silu(
-        x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), y.data_ptr(),
-        scratch.data_ptr(), n, c, hw, num_groups, float(eps), int(silu),
-        code, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        build.DTYPE_CODES[str(w_dtype)], y.data_ptr(), n, c, hw, num_groups,
+        float(eps), int(silu), code,
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "groupnorm kernel")
     fused_groupnorm_silu.launches += 1
     return y

@@ -4,8 +4,8 @@ Counterpart of ``stable_diffusion_videos_tpu/pipeline/walk.py`` on its
 default path: ``walk()`` with the same arguments and output layout (clip
 subdirectories, ``frameNNNNNN.png``, ``prompt_config.json``, per-clip and
 final videos), frame-granular ``resume``, lerp for embeddings and slerp for
-noise, ``negative_prompt``, audio-timed frames through the JAX package's
-host-only ``audio/analysis.py``, and a drain that saves batch N after batch
+noise, ``negative_prompt``, audio-timed frames (``audio/analysis.py``),
+streamed video assembly (``media/video.py``), and a drain that saves batch N after batch
 N+1 has been enqueued on the device.
 
 Options of the JAX pipeline this port does not have yet (upsampling, the
@@ -26,14 +26,12 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from stable_diffusion_videos_tpu.audio.analysis import (get_timesteps_arr,
-                                                        load_audio)
-from stable_diffusion_videos_tpu.media.video import FrameWriter, iter_frames
-from stable_diffusion_videos_tpu.media.video import make_video as assemble
-
+from ..audio.analysis import get_timesteps_arr, load_audio
 from ..core.interp import lerp, slerp
 from ..core.rng import noise_for_seed
 from ..media.png import write_png
+from ..media.video import FrameWriter, iter_frames
+from ..media.video import make_video as assemble
 from ..models.bundle import SDModels
 from ..runtime.engine import Engine, refuse_unported
 

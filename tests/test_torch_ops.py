@@ -120,11 +120,13 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,sq,sk,h,d", [(2, 256, 256, 8, 40),
-                                         (2, 256, 77, 8, 80),
-                                         (2, 64, 77, 8, 160),
-                                         (1, 1024, 1024, 1, 512),
-                                         (2, 128, 77, 2, 20)])
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 256, 256, 8, 40), (2, 256, 77, 8, 80), (2, 64, 77, 8, 160),
+    (1, 1024, 1024, 1, 512), (2, 128, 77, 2, 20),
+    # Sq not a multiple of the bf16 kernel's q tile (192 rows at D <= 80,
+    # 128 at D=160, 64 at D=512), with ragged and with whole key tiles
+    (2, 200, 77, 8, 40), (1, 300, 500, 2, 160), (1, 100, 256, 1, 512),
+    (2, 1000, 1000, 4, 80)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, b, sq, sk, h,
                                               d):
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
@@ -139,12 +141,22 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, b, sq, sk, h,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (1, 256, 512, 512)])
+# one shape on each path of the kernel: groups of 80 or 160 KB stay on chip;
+# groups of 4 or 8 MB are streamed; 25-element channels are not 16-byte
+# aligned and move element by element; 300 channels a group are more than
+# an on-chip block has threads
+@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (1, 256, 512, 512),
+                                   (2, 96, 5, 5), (1, 9600, 4, 4)],
+                         ids=["on_chip", "streamed", "unaligned",
+                              "wide_groups"])
 @pytest.mark.parametrize("eps,silu", [(1e-5, True), (1e-6, False)])
-def test_groupnorm_kernel_matches_plain(cuda, dtype, tol, shape, eps, silu):
+@pytest.mark.parametrize("weights", ["fp32", "like_x"])
+def test_groupnorm_kernel_matches_plain(cuda, dtype, tol, shape, eps, silu,
+                                        weights):
     x = (torch.randn(shape, device=cuda) * 2 + 0.5).to(dtype)
-    scale, bias = torch.randn(shape[1], device=cuda), \
-        torch.randn(shape[1], device=cuda)
+    wdt = torch.float32 if weights == "fp32" else dtype
+    scale, bias = torch.randn(shape[1], device=cuda).to(wdt), \
+        torch.randn(shape[1], device=cuda).to(wdt)
     torch.testing.assert_close(
         fused_groupnorm_silu(x, scale, bias, 32, eps, silu).float(),
         groupnorm_reference(x, scale, bias, 32, eps, silu).float(),

@@ -4,7 +4,8 @@ The JAX tiny pipeline's weights are carried into the port's tiny bundle by
 ``from_jax_params``; both walk 2 prompts x 3 frames at 64x64 with pndm-4 and
 ``batch_size=2`` (the port pads its last dispatch to the bucket of 2).  The
 frames must agree within 2/255 per pixel.  Also: resume regenerates only
-missing frames, unported options raise, and the port never imports jax.
+missing frames, unported options raise, the port imports neither jax nor
+the JAX package, and its audio schedule equals the JAX package's.
 """
 
 import json
@@ -55,6 +56,16 @@ def frames(run_dir: Path) -> dict:
             for p in sorted(run_dir.glob("**/frame*.png"))}
 
 
+def click_track(path: Path, sr: int = 22050, seconds: float = 1.0) -> Path:
+    """A 220 Hz tone gated into 50 ms clicks twice a second, as a WAV
+    written by the JAX package's ``save_wav``."""
+    from stable_diffusion_videos_tpu.audio import save_wav
+    t = np.arange(int(sr * seconds)) / sr
+    save_wav(str(path), (0.1 * np.sin(2 * np.pi * 220 * t)
+                         * (t % 0.5 < 0.05)).astype(np.float32), sr)
+    return path
+
+
 def test_walk_matches_jax(jax_pipeline, tmp_path):
     jax_dir = Path(jax_pipeline.walk(output_dir=str(tmp_path / "jax"),
                                      name="w", **WALK))
@@ -90,12 +101,7 @@ def test_resume_regenerates_only_missing_frames(tmp_path):
 
 
 def test_walk_with_video_and_audio(tmp_path):
-    from stable_diffusion_videos_tpu.audio import save_wav
-    sr = 22050
-    t = np.arange(sr) / sr
-    wav = tmp_path / "beat.wav"
-    save_wav(str(wav), (0.1 * np.sin(2 * np.pi * 220 * t)
-                        * (t % 0.5 < 0.05)).astype(np.float32), sr)
+    wav = click_track(tmp_path / "beat.wav")
     pipe = StableDiffusionWalkPipeline.tiny(CPU)
     video = pipe.walk(**{**WALK, "make_video": True}, fps=3,
                       audio_filepath=str(wav), output_dir=str(tmp_path),
@@ -121,18 +127,43 @@ def test_unported_options_raise(where, kw, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
+    """A walk with video and audio imports neither jax nor the JAX
+    package, not even its host-only modules."""
+    wav = click_track(tmp_path / "beat.wav")
     code = (
         "import sys, torch\n"
         "from stable_diffusion_videos_tpu_torch.pipeline import "
         "StableDiffusionWalkPipeline as P\n"
         "P.tiny(torch.device('cpu')).walk(prompts=['a', 'b'], seeds=[1, 2], "
         "num_interpolation_steps=2, height=32, width=32, "
-        "num_inference_steps=2, batch_size=2, make_video=False, "
+        "num_inference_steps=2, batch_size=2, make_video=True, fps=2, "
+        f"audio_filepath={str(wav)!r}, "
         f"output_dir={str(tmp_path)!r}, name='n')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax'))\n"
+        "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "EAGER_IMPORT"}
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=Path(__file__).resolve().parent.parent, env=env)
     assert len(list(tmp_path.glob("n/**/frame*.png"))) == 2
+    videos = [p for p in (tmp_path / "n").glob("n.*")
+              if p.suffix in (".mp4", ".avi")]
+    assert len(videos) == 1 and videos[0].stat().st_size > 0
+
+
+@pytest.mark.parametrize("offset,duration,fps,margin,smooth", [
+    (0.0, 1.0, 12, 1.0, 0.0), (0.25, 0.5, 30, 2.0, 0.3)])
+def test_timesteps_match_jax(tmp_path, offset, duration, fps, margin,
+                             smooth):
+    """The port's audio schedule equals the JAX package's exactly."""
+    from stable_diffusion_videos_tpu.audio.analysis import \
+        get_timesteps_arr as jax_timesteps
+    from stable_diffusion_videos_tpu_torch.audio.analysis import \
+        get_timesteps_arr
+    wav = click_track(tmp_path / "beat.wav")
+    kw = dict(offset=offset, duration=duration, fps=fps, margin=margin,
+              smooth=smooth)
+    want = jax_timesteps(str(wav), **kw)
+    got = get_timesteps_arr(str(wav), **kw)
+    assert got.shape == (int(duration * fps),)
+    np.testing.assert_array_equal(got, want)
