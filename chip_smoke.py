@@ -22,7 +22,7 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    reference produced;
 5. main path: ``walk()`` at 512², pndm-50, CFG 7.5, batch 8, two dispatches,
    on random bf16 weights; the kernels' launch counts come from this run,
-   with the launches of each shape.
+   with the launches of each shape, every one of which phase 3 checks.
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -31,8 +31,6 @@ the kernels' JSON record and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
-import collections
-import contextlib
 import importlib.util
 import json
 import shutil
@@ -71,20 +69,33 @@ ATTN_SHAPES = [(16, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40),
                (16, 256, 256, 8, 160), (16, 256, 77, 8, 160),
                (16, 64, 64, 8, 160), (16, 64, 77, 8, 160),
                (8, 4096, 4096, 1, 512)]
-# (shape NCHW, eps, silu) as the walk runs them, plus the one (eps, silu)
-# pair it does not use
-GN_SHAPES = [((16, 320, 64, 64), 1e-5, True), ((16, 960, 64, 64), 1e-5, True),
-             ((16, 320, 64, 64), 1e-6, False),
-             ((16, 320, 64, 64), 1e-5, False),
-             ((16, 640, 32, 32), 1e-5, True),
+# (shape NCHW, eps, silu): every GroupNorm the walk runs, the UNet's at CFG
+# batch 16 (resnets eps 1e-5 with SiLU, transformers' input norms 1e-6
+# without) and the VAE decoder's at batch 8, with weights in x's dtype as
+# the model's are.  Phase 5 fails if the walk launches either kernel at a
+# (shape, eps, silu, dtype) that phase 3 does not check.
+GN_SHAPES = [((16, 320, 64, 64), 1e-5, True), ((16, 320, 64, 64), 1e-6, False),
+             ((16, 320, 32, 32), 1e-5, True),
+             ((16, 640, 64, 64), 1e-5, True),
+             ((16, 640, 32, 32), 1e-5, True), ((16, 640, 32, 32), 1e-6, False),
+             ((16, 640, 16, 16), 1e-5, True),
+             ((16, 960, 64, 64), 1e-5, True), ((16, 960, 32, 32), 1e-5, True),
+             ((16, 1280, 32, 32), 1e-5, True),
              ((16, 1280, 16, 16), 1e-5, True),
-             ((16, 2560, 8, 8), 1e-5, True), ((16, 1280, 8, 8), 1e-6, False),
+             ((16, 1280, 16, 16), 1e-6, False),
+             ((16, 1280, 8, 8), 1e-5, True), ((16, 1280, 8, 8), 1e-6, False),
+             ((16, 1920, 32, 32), 1e-5, True),
+             ((16, 1920, 16, 16), 1e-5, True),
+             ((16, 2560, 16, 16), 1e-5, True), ((16, 2560, 8, 8), 1e-5, True),
              ((8, 512, 64, 64), 1e-6, True), ((8, 512, 64, 64), 1e-6, False),
              ((8, 512, 128, 128), 1e-6, True),
              ((8, 512, 256, 256), 1e-6, True),
              ((8, 256, 256, 256), 1e-6, True),
              ((8, 256, 512, 512), 1e-6, True),
              ((8, 128, 512, 512), 1e-6, True)]
+# the (eps, silu) pair the walk does not use, with fp32 weights: the
+# wrapper's other weight branch
+GN_EXTRA = [((16, 320, 64, 64), 1e-5, False)]
 
 
 def gpu_line() -> str:
@@ -286,11 +297,14 @@ def phase_kernels(torch):
             print(f"host: a bf16 attention call encodes its three TMA "
                   f"tensor maps in {us:.2f} us")
             del q
-        for shape, eps, silu in GN_SHAPES:
+        for shape, eps, silu, w_dt in (
+                [(*c, dt) for c in GN_SHAPES]
+                + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
-            scale = torch.randn(shape[1], device=dev, generator=g)
-            bias = torch.randn(shape[1], device=dev, generator=g)
-            name = f"groupnorm {dn} {shape} eps={eps} silu={silu}"
+            scale = torch.randn(shape[1], device=dev, generator=g).to(w_dt)
+            bias = torch.randn(shape[1], device=dev, generator=g).to(w_dt)
+            name = (f"groupnorm {dn} {shape} eps={eps} silu={silu} weights "
+                    f"{str(w_dt).split('.')[1]}")
             err = compare(torch, name,
                           fused_groupnorm_silu(x, scale, bias, 32, eps, silu),
                           groupnorm_reference(x, scale, bias, 32, eps, silu),
@@ -379,32 +393,6 @@ def png_size(path: Path) -> tuple[int, int]:
     return struct.unpack(">II", head[16:24])
 
 
-@contextlib.contextmanager
-def calls_by_shape():
-    """Counts the main path's calls of the two kernel wrappers by input
-    shape (the wrappers' own launch counters are left as they are)."""
-    from stable_diffusion_videos_tpu_torch.models import layers
-    from stable_diffusion_videos_tpu_torch.ops import attention
-    counts = collections.Counter()
-    fa, gn = attention.flash_attention, layers.fused_groupnorm_silu
-
-    def fa_counted(q, k, v, scale=None):
-        b, sq, h, d = q.shape
-        counts[f"attn B·H={b * h} Sq={sq} Sk={k.shape[1]} D={d}"] += 1
-        return fa(q, k, v, scale=scale)
-
-    def gn_counted(x, *args, **kwargs):
-        counts[f"groupnorm {tuple(x.shape)}"] += 1
-        return gn(x, *args, **kwargs)
-
-    attention.flash_attention, layers.fused_groupnorm_silu = (fa_counted,
-                                                              gn_counted)
-    try:
-        yield counts
-    finally:
-        attention.flash_attention, layers.fused_groupnorm_silu = fa, gn
-
-
 def phase_main(torch):
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
@@ -426,30 +414,41 @@ def phase_main(torch):
     plains = (flash_attention_reference, groupnorm_reference)
     for f in counters:
         f.launches = 0
+        f.by_shape.clear()
     for f in plains:
         f.calls = 0
     t0 = time.perf_counter()
-    with calls_by_shape() as by_shape:
-        pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
-                  seeds=[42, 1337], num_interpolation_steps=16,
-                  output_dir=str(WORK), name="chip_smoke_walk", height=512,
-                  width=512, num_inference_steps=50, guidance_scale=7.5,
-                  batch_size=8, make_video=False)
-        torch.cuda.synchronize()
+    pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
+              seeds=[42, 1337], num_interpolation_steps=16,
+              output_dir=str(WORK), name="chip_smoke_walk", height=512,
+              width=512, num_inference_steps=50, guidance_scale=7.5,
+              batch_size=8, make_video=False)
+    torch.cuda.synchronize()
     walk_s = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in counters}
+    by_shape = {f.__name__: dict(f.by_shape) for f in counters}
     plain_calls = {f.__name__: f.calls for f in plains}
     pngs = sorted(run_dir.glob("**/frame*.png"))
     sizes = {png_size(p) for p in pngs}
     print(f"main: walk wrote {len(pngs)} frames of {sizes} in {walk_s:.1f} s;"
           f" launches {launches}; plain calls {plain_calls}")
-    for key, n in sorted(by_shape.items()):
-        print(f"main: {key}: {n} launches in the walk's 2 dispatches")
+    for name, counts in by_shape.items():
+        for key, n in sorted(counts.items(), key=str):
+            print(f"main: {name} {key}: {n} launches in the walk's 2 "
+                  f"dispatches")
     if len(pngs) != 16 or sizes != {(512, 512)}:
         raise AssertionError(f"expected 16 frames of 512x512, got "
                              f"{len(pngs)} of {sizes}")
     if min(launches.values()) <= 0 or max(plain_calls.values()) != 0:
         raise AssertionError("the walk did not run on the kernels alone")
+    bf16 = torch.bfloat16
+    checked = ({(*s, bf16) for s in ATTN_SHAPES}
+               | {(*c, bf16, bf16) for c in GN_SHAPES})
+    unchecked = [k for counts in by_shape.values() for k in counts
+                 if k not in checked]
+    if unchecked:
+        raise AssertionError(f"phase 3 does not check the walk's launches "
+                             f"at {unchecked}")
     shutil.rmtree(run_dir)
 
     cond = pipe.embed_text("a red fox in the snow").expand(8, -1, -1)

@@ -29,9 +29,10 @@ DEFAULT_SR = 22050
 # ---------------------------------------------------------------------------
 
 def load_audio(path, sr: int = DEFAULT_SR, offset: float = 0.0,
-               duration: float | None = None, mono: bool = True):
-    """Load an audio file, slice ``[offset, offset+duration]``, resample to
-    ``sr``.  Returns ``(y, sr)`` with ``y`` float32 in [-1, 1].
+               duration: float | None = None):
+    """Load an audio file, slice ``[offset, offset+duration]``, downmix to
+    mono, resample to ``sr``.  Returns ``(y, sr)`` with ``y`` float32 in
+    [-1, 1].
 
     Equivalent of ``librosa.load`` (reference ``utils.py:13`` accepts any
     audioread-decodable format).  Decode ladder, mirroring the video
@@ -46,7 +47,7 @@ def load_audio(path, sr: int = DEFAULT_SR, offset: float = 0.0,
     """
     path = str(path)
     if not _looks_like_wav(path):
-        return _load_audio_ffmpeg(path, sr, offset, duration, mono)
+        return _load_audio_ffmpeg(path, sr, offset, duration)
     native_sr, data = wavfile.read(path)
     if data.dtype == np.int16:
         y = data.astype(np.float32) / 32768.0
@@ -56,7 +57,7 @@ def load_audio(path, sr: int = DEFAULT_SR, offset: float = 0.0,
         y = (data.astype(np.float32) - 128.0) / 128.0
     else:
         y = data.astype(np.float32)
-    if y.ndim == 2 and mono:
+    if y.ndim == 2:
         y = y.mean(axis=1)
     start = int(round(offset * native_sr))
     if duration is not None:
@@ -80,7 +81,7 @@ def _looks_like_wav(path: str) -> bool:
 
 
 def _load_audio_ffmpeg(path: str, sr: int, offset: float,
-                       duration: float | None, mono: bool):
+                       duration: float | None):
     """Non-WAV decode: ffmpeg subprocess -> raw f32le PCM on stdout.
 
     ffmpeg does the demux/decode/resample/downmix in one pass (same
@@ -98,7 +99,7 @@ def _load_audio_ffmpeg(path: str, sr: int, offset: float,
     ffmpeg = _shutil.which("ffmpeg")
     if ffmpeg is None:
         if path.lower().endswith((".aif", ".aiff", ".aifc")):
-            return _load_audio_aiff(path, sr, offset, duration, mono)
+            return _load_audio_aiff(path, sr, offset, duration)
         raise RuntimeError(
             f"{path!r} is not a WAV file and no `ffmpeg` binary is on PATH "
             "to decode it. Install ffmpeg, or convert the file to WAV "
@@ -109,21 +110,18 @@ def _load_audio_ffmpeg(path: str, sr: int, offset: float,
     if duration is not None:
         cmd += ["-t", f"{duration:.6f}"]
     cmd += ["-f", "f32le", "-acodec", "pcm_f32le", "-ar", str(int(sr)),
-            "-ac", "1" if mono else "2", "-"]
+            "-ac", "1", "-"]
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.PIPE)
     if proc.returncode != 0 or not proc.stdout:
         raise RuntimeError(
             f"ffmpeg failed to decode {path!r}: "
             f"{proc.stderr.decode(errors='replace').strip()}")
-    y = np.frombuffer(proc.stdout, np.float32)
-    if not mono:
-        y = y.reshape(-1, 2)
-    return y.astype(np.float32), sr
+    return np.frombuffer(proc.stdout, np.float32).copy(), sr
 
 
 def _load_audio_aiff(path: str, sr: int, offset: float,
-                     duration: float | None, mono: bool):
+                     duration: float | None):
     """Stdlib AIFF decode (big-endian PCM) for ffmpeg-less environments."""
     import warnings
     with warnings.catch_warnings():
@@ -140,9 +138,7 @@ def _load_audio_aiff(path: str, sr: int, offset: float,
     y = np.frombuffer(raw, dt).astype(np.float32)
     y /= float(2 ** (8 * width - 1))
     if n_ch > 1:
-        y = y.reshape(-1, n_ch)
-        if mono:
-            y = y.mean(axis=1)
+        y = y.reshape(-1, n_ch).mean(axis=1)
     start = int(round(offset * native_sr))
     if duration is not None:
         y = y[start:start + int(round(duration * native_sr))]
@@ -150,12 +146,12 @@ def _load_audio_aiff(path: str, sr: int, offset: float,
         y = y[start:]
     if native_sr != sr:
         g = np.gcd(int(sr), int(native_sr))
-        y = _sig.resample_poly(y, sr // g, native_sr // g, axis=0)
+        y = _sig.resample_poly(y, sr // g, native_sr // g)
     return np.ascontiguousarray(y, np.float32), sr
 
 
 def save_wav(path, y: np.ndarray, sr: int = DEFAULT_SR):
-    """Write mono/stereo float [-1,1] audio to 16-bit WAV (for muxing)."""
+    """Write mono float [-1,1] audio to 16-bit WAV (for muxing)."""
     y16 = np.clip(y, -1.0, 1.0)
     y16 = (y16 * 32767.0).astype(np.int16)
     wavfile.write(str(path), sr, y16)
@@ -165,49 +161,42 @@ def save_wav(path, y: np.ndarray, sr: int = DEFAULT_SR):
 # STFT / iSTFT (librosa-compatible: hann, centered, constant pad)
 # ---------------------------------------------------------------------------
 
+N_FFT = 2048          # STFT frame and Hann window
+HOP = N_FFT // 4      # STFT hop
+HPSS_KERNEL = 31      # median-filter length of the HPSS references
+N_MELS = 128          # mel bands
+
+
 def _hann(n: int) -> np.ndarray:
     return _sig.get_window("hann", n, fftbins=True).astype(np.float32)
 
 
-def stft(y: np.ndarray, n_fft: int = 2048, hop_length: int | None = None,
-         win_length: int | None = None) -> np.ndarray:
-    """Short-time Fourier transform, shape ``(1 + n_fft//2, frames)``."""
-    hop_length = hop_length or n_fft // 4
-    win_length = win_length or n_fft
-    win = _hann(win_length)
-    if win_length < n_fft:  # center-pad window to n_fft
-        pad = (n_fft - win_length) // 2
-        win = np.pad(win, (pad, n_fft - win_length - pad))
-    ypad = np.pad(y, (n_fft // 2, n_fft // 2))
-    n_frames = 1 + (len(ypad) - n_fft) // hop_length
-    idx = np.arange(n_fft)[None, :] + hop_length * np.arange(n_frames)[:, None]
+def stft(y: np.ndarray) -> np.ndarray:
+    """Short-time Fourier transform, shape ``(1 + N_FFT//2, frames)``."""
+    win = _hann(N_FFT)
+    ypad = np.pad(y, (N_FFT // 2, N_FFT // 2))
+    n_frames = 1 + (len(ypad) - N_FFT) // HOP
+    idx = np.arange(N_FFT)[None, :] + HOP * np.arange(n_frames)[:, None]
     frames = ypad[idx] * win[None, :]
-    return np.fft.rfft(frames, n=n_fft, axis=1).T
+    return np.fft.rfft(frames, n=N_FFT, axis=1).T
 
 
-def istft(D: np.ndarray, hop_length: int | None = None,
-          win_length: int | None = None, length: int | None = None) -> np.ndarray:
-    """Inverse STFT via windowed overlap-add with squared-window normalisation."""
-    n_fft = 2 * (D.shape[0] - 1)
-    hop_length = hop_length or n_fft // 4
-    win_length = win_length or n_fft
-    win = _hann(win_length)
-    if win_length < n_fft:
-        pad = (n_fft - win_length) // 2
-        win = np.pad(win, (pad, n_fft - win_length - pad))
-    frames = np.fft.irfft(D.T, n=n_fft, axis=1)
+def istft(D: np.ndarray, length: int) -> np.ndarray:
+    """Inverse STFT via windowed overlap-add with squared-window
+    normalisation, cut or zero-padded to ``length`` samples."""
+    win = _hann(N_FFT)
+    frames = np.fft.irfft(D.T, n=N_FFT, axis=1)
     n_frames = frames.shape[0]
-    out_len = n_fft + hop_length * (n_frames - 1)
+    out_len = N_FFT + HOP * (n_frames - 1)
     y = np.zeros(out_len, dtype=np.float64)
     wsum = np.zeros(out_len, dtype=np.float64)
     for i in range(n_frames):
-        s = i * hop_length
-        y[s:s + n_fft] += frames[i] * win
-        wsum[s:s + n_fft] += win ** 2
+        s = i * HOP
+        y[s:s + N_FFT] += frames[i] * win
+        wsum[s:s + N_FFT] += win ** 2
     y = y / np.maximum(wsum, 1e-10)
-    y = y[n_fft // 2:]
-    if length is not None:
-        y = y[:length] if len(y) >= length else np.pad(y, (0, length - len(y)))
+    y = y[N_FFT // 2:]
+    y = y[:length] if len(y) >= length else np.pad(y, (0, length - len(y)))
     return y.astype(np.float32)
 
 
@@ -215,24 +204,23 @@ def istft(D: np.ndarray, hop_length: int | None = None,
 # HPSS (harmonic/percussive separation via median-filter soft masking)
 # ---------------------------------------------------------------------------
 
-def hpss(D: np.ndarray, kernel_size: int = 31, power: float = 2.0,
-         margin: float = 1.0):
+def hpss(D: np.ndarray, margin: float = 1.0):
     """Split a complex spectrogram into (harmonic, percussive) parts.
 
     Median-filter the magnitude along time for the harmonic reference and
-    along frequency for the percussive reference, then soft-mask
-    (``librosa.decompose.hpss`` semantics; ``margin`` scales the competing
+    along frequency for the percussive reference, then soft-mask with power
+    2 (``librosa.decompose.hpss`` semantics; ``margin`` scales the competing
     reference as in the reference call ``utils.py:23``).
     """
     S = np.abs(D)
-    harm = median_filter(S, size=(1, kernel_size), mode="reflect")
-    perc = median_filter(S, size=(kernel_size, 1), mode="reflect")
+    harm = median_filter(S, size=(1, HPSS_KERNEL), mode="reflect")
+    perc = median_filter(S, size=(HPSS_KERNEL, 1), mode="reflect")
 
     def softmask(x, x_ref):
         z = np.maximum(x, x_ref)
         z = np.where(z < 1e-10, 1.0, z)
-        xs = (x / z) ** power
-        rs = (x_ref / z) ** power
+        xs = (x / z) ** 2.0
+        rs = (x_ref / z) ** 2.0
         return xs / (xs + rs + 1e-30)
 
     mask_h = softmask(harm, perc * margin)
@@ -268,28 +256,26 @@ def _mel_to_hz(m):
                     freqs)
 
 
-def mel_filterbank(sr: int, n_fft: int, n_mels: int = 128,
-                   fmin: float = 0.0, fmax: float | None = None) -> np.ndarray:
-    """Slaney-style mel filterbank, shape ``(n_mels, 1 + n_fft//2)``."""
-    fmax = fmax or sr / 2.0
-    fft_freqs = np.linspace(0, sr / 2.0, 1 + n_fft // 2)
-    mel_pts = _mel_to_hz(np.linspace(_hz_to_mel(fmin), _hz_to_mel(fmax), n_mels + 2))
+def mel_filterbank(sr: int) -> np.ndarray:
+    """Slaney-style mel filterbank from 0 Hz to ``sr/2``, shape
+    ``(N_MELS, 1 + N_FFT//2)``."""
+    fft_freqs = np.linspace(0, sr / 2.0, 1 + N_FFT // 2)
+    mel_pts = _mel_to_hz(np.linspace(_hz_to_mel(0.0), _hz_to_mel(sr / 2.0),
+                                     N_MELS + 2))
     fdiff = np.diff(mel_pts)
     ramps = mel_pts[:, None] - fft_freqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
     # slaney normalisation: equal area per band
-    enorm = 2.0 / (mel_pts[2:n_mels + 2] - mel_pts[:n_mels])
+    enorm = 2.0 / (mel_pts[2:N_MELS + 2] - mel_pts[:N_MELS])
     weights *= enorm[:, None]
     return weights.astype(np.float32)
 
 
-def melspectrogram(y: np.ndarray, sr: int = DEFAULT_SR, n_fft: int = 2048,
-                   hop_length: int = 512, n_mels: int = 128,
-                   power: float = 2.0) -> np.ndarray:
-    S = np.abs(stft(y, n_fft=n_fft, hop_length=hop_length)) ** power
-    return mel_filterbank(sr, n_fft, n_mels) @ S
+def melspectrogram(y: np.ndarray, sr: int = DEFAULT_SR) -> np.ndarray:
+    """Mel power spectrogram, shape ``(N_MELS, frames)``."""
+    return mel_filterbank(sr) @ np.abs(stft(y)) ** 2.0
 
 
 # ---------------------------------------------------------------------------
@@ -307,9 +293,8 @@ def get_timesteps_arr(audio_filepath, offset: float, duration: float,
     """
     y, sr = load_audio(audio_filepath, sr=DEFAULT_SR, offset=offset,
                        duration=duration)
-    D = stft(y, n_fft=2048, hop_length=2048 // 4, win_length=2048)
-    _, D_perc = hpss(D, margin=margin)
-    y_perc = istft(D_perc, hop_length=2048 // 4, length=len(y))
+    _, D_perc = hpss(stft(y), margin=margin)
+    y_perc = istft(D_perc, length=len(y))
 
     spec_raw = melspectrogram(y_perc, sr=sr)
     spec_max = np.amax(spec_raw, axis=0)

@@ -25,6 +25,8 @@ logger = logging.getLogger("sdv_torch")
 _SOURCE = Path(__file__).resolve().parents[2] / "native" / "sdv_media.cpp"
 _SO_PATH = Path(__file__).resolve().parents[1] / "_build" / "media" / \
     "libsdv_media.so"
+QUALITY = 95    # JPEG quality of a frame
+N_THREADS = 4   # JPEG encoder threads
 _lib = None
 _build_failed = False
 
@@ -81,7 +83,6 @@ class NativeAviSink:
     """Streaming MJPEG/AVI writer with optional PCM16 audio."""
 
     def __init__(self, path, width: int, height: int, fps: float = 30,
-                 quality: int = 95, n_threads: int = 4,
                  audio: Optional[np.ndarray] = None, audio_sr: int = 22050):
         lib = load_native()
         if lib is None:
@@ -102,7 +103,7 @@ class NativeAviSink:
         frac = Fraction(fps).limit_denominator(65535)
         self._h = lib.sdv_sink_open(str(path).encode(), width, height,
                                     frac.numerator, frac.denominator,
-                                    quality, n_threads, sr, channels)
+                                    QUALITY, N_THREADS, sr, channels)
         if not self._h:
             raise RuntimeError(f"failed to open {path}")
         self.path = str(path)

@@ -35,8 +35,7 @@ class FrameWriter:
     """Streaming frame sink.  Frames are uint8 RGB (H, W, 3)."""
 
     def __init__(self, output_filepath, fps: int = 30,
-                 audio: Optional[np.ndarray] = None, audio_sr: int = 22050,
-                 backend: Optional[str] = None):
+                 audio: Optional[np.ndarray] = None, audio_sr: int = 22050):
         self.output_filepath = str(output_filepath)
         self.fps = fps
         self.audio = audio
@@ -46,15 +45,14 @@ class FrameWriter:
         self._cv2 = None
         self._native = None
         self._shape = None
-        if backend is None:
-            if _find_ffmpeg():
-                backend = "ffmpeg"
+        if _find_ffmpeg():
+            backend = "ffmpeg"
+        else:
+            from .native_sink import native_available
+            if audio is not None and native_available():
+                backend = "native"  # only audio-muxing option w/o ffmpeg
             else:
-                from .native_sink import native_available
-                if audio is not None and native_available():
-                    backend = "native"  # only audio-muxing option w/o ffmpeg
-                else:
-                    backend = "cv2"
+                backend = "cv2"
         if backend == "native":
             # our muxer writes a RIFF/AVI container
             self.output_filepath = str(Path(self.output_filepath)

@@ -7,9 +7,14 @@ the JAX package: q ``(B, Sq, H, D)``, k/v ``(B, Sk, H, D)``.
 
 Dispatch is by the tensor's device only: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes ``flash_attention_reference``.
+``flash_attention.launches`` counts the kernel's launches, and
+``flash_attention.by_shape`` the same launches by ``(B, Sq, Sk, H, D,
+dtype)``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -67,7 +72,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash attention kernel")
     flash_attention.launches += 1
+    flash_attention.by_shape[(b, sq, k.shape[1], h, d, q.dtype)] += 1
     return o[..., :d].contiguous() if pad else o
 
 
 flash_attention.launches = 0
+flash_attention.by_shape = collections.Counter()

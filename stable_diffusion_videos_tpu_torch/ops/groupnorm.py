@@ -7,9 +7,14 @@ one contiguous run of ``C/G·H·W`` elements.
 
 Dispatch is by the tensor's device only: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes ``groupnorm_reference``.
+``fused_groupnorm_silu.launches`` counts the kernel's launches, and
+``fused_groupnorm_silu.by_shape`` the same launches by ``(shape, eps, silu,
+x dtype, weight dtype)``.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -73,7 +78,10 @@ def fused_groupnorm_silu(x: torch.Tensor, scale: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "groupnorm kernel")
     fused_groupnorm_silu.launches += 1
+    fused_groupnorm_silu.by_shape[(tuple(x.shape), float(eps), bool(silu),
+                                   x.dtype, w_dtype)] += 1
     return y
 
 
 fused_groupnorm_silu.launches = 0
+fused_groupnorm_silu.by_shape = collections.Counter()

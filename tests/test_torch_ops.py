@@ -141,14 +141,16 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, tol, b, sq, sk, h,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-# one shape on each path of the kernel: groups of 80 or 160 KB stay on chip;
-# groups of 4 or 8 MB are streamed; 25-element channels are not 16-byte
-# aligned and move element by element; 300 channels a group are more than
-# an on-chip block has threads
-@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (1, 256, 512, 512),
+# one shape on each path of the kernel: groups of 80 or 160 KB stay on chip
+# (clusters of 4 or 7 blocks), as do groups of 60 or 120 KB and 160 or 320
+# KB (clusters of 3 or 5, and 7 or 14); groups of 4 or 8 MB are streamed;
+# 25-element channels are not 16-byte aligned and move element by element;
+# 300 channels a group are more than an on-chip block has threads
+@pytest.mark.parametrize("shape", [(2, 320, 64, 64), (2, 960, 32, 32),
+                                   (2, 640, 64, 64), (1, 256, 512, 512),
                                    (2, 96, 5, 5), (1, 9600, 4, 4)],
-                         ids=["on_chip", "streamed", "unaligned",
-                              "wide_groups"])
+                         ids=["on_chip", "cluster_of_3", "cluster_of_7",
+                              "streamed", "unaligned", "wide_groups"])
 @pytest.mark.parametrize("eps,silu", [(1e-5, True), (1e-6, False)])
 @pytest.mark.parametrize("weights", ["fp32", "like_x"])
 def test_groupnorm_kernel_matches_plain(cuda, dtype, tol, shape, eps, silu,
