@@ -22,7 +22,15 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    reference produced;
 5. main path: ``walk()`` at 512², pndm-50, CFG 7.5, batch 8, two dispatches,
    on random bf16 weights; the kernels' launch counts come from this run,
-   with the launches of each shape, every one of which phase 3 checks.
+   with the launches of each shape, every one of which phase 3 checks;
+6. fewstep: the few-step operating point on the same weights: ``walk()``
+   with dpm-20 x DeepCache ``step_cache=2`` under "ends" (16 frames, warm
+   seconds a dispatch and frames/s), one 8-frame dispatch of the ``fast``
+   preset (pndm-50 x ``step_cache=3`` x ``guidance_interval=(0.1, 0.85)``,
+   whose cond-only segments run the UNet at batch 8), the ``fast`` preset's
+   ``walk()`` at its own default batch of 16 (UNet batch 32 under CFG; warm
+   seconds a dispatch), and the full-width DeepCache splice at batch 16;
+   each run's launches by shape, every one of which phase 3 checks.
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -46,7 +54,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
-PHASES = ("env", "build", "kernels", "golden", "main")
+PHASES = ("env", "build", "kernels", "golden", "main", "fewstep")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -62,37 +70,46 @@ ATTN_SCALED = dict(max_ratio=0.05, rel_l2=1e-2)
 PEAK_OPS = {2: 989e12, 4: 67e12}
 PEAK_BYTES = 3.35e12
 
-# (B, Sq, Sk, H, D): CFG batch 16 at 512² (UNet self/cross) and the VAE
-# decoder's mid-block attention at batch 8
-ATTN_SHAPES = [(16, 4096, 4096, 8, 40), (16, 4096, 77, 8, 40),
-               (16, 1024, 1024, 8, 80), (16, 1024, 77, 8, 80),
-               (16, 256, 256, 8, 160), (16, 256, 77, 8, 160),
-               (16, 64, 64, 8, 160), (16, 64, 77, 8, 160),
-               (8, 4096, 4096, 1, 512)]
-# (shape NCHW, eps, silu): every GroupNorm the walk runs, the UNet's at CFG
-# batch 16 (resnets eps 1e-5 with SiLU, transformers' input norms 1e-6
-# without) and the VAE decoder's at batch 8, with weights in x's dtype as
-# the model's are.  Phase 5 fails if the walk launches either kernel at a
-# (shape, eps, silu, dtype) that phase 3 does not check.
-GN_SHAPES = [((16, 320, 64, 64), 1e-5, True), ((16, 320, 64, 64), 1e-6, False),
-             ((16, 320, 32, 32), 1e-5, True),
-             ((16, 640, 64, 64), 1e-5, True),
-             ((16, 640, 32, 32), 1e-5, True), ((16, 640, 32, 32), 1e-6, False),
-             ((16, 640, 16, 16), 1e-5, True),
-             ((16, 960, 64, 64), 1e-5, True), ((16, 960, 32, 32), 1e-5, True),
-             ((16, 1280, 32, 32), 1e-5, True),
-             ((16, 1280, 16, 16), 1e-5, True),
-             ((16, 1280, 16, 16), 1e-6, False),
-             ((16, 1280, 8, 8), 1e-5, True), ((16, 1280, 8, 8), 1e-6, False),
-             ((16, 1920, 32, 32), 1e-5, True),
-             ((16, 1920, 16, 16), 1e-5, True),
-             ((16, 2560, 16, 16), 1e-5, True), ((16, 2560, 8, 8), 1e-5, True),
-             ((8, 512, 64, 64), 1e-6, True), ((8, 512, 64, 64), 1e-6, False),
-             ((8, 512, 128, 128), 1e-6, True),
-             ((8, 512, 256, 256), 1e-6, True),
-             ((8, 256, 256, 256), 1e-6, True),
-             ((8, 256, 512, 512), 1e-6, True),
-             ((8, 128, 512, 512), 1e-6, True)]
+# (Sq, Sk, D) of the UNet's self- and cross-attentions at 512², 8 heads
+UNET_ATTN = [(4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
+             (1024, 77, 80), (256, 256, 160), (256, 77, 160), (64, 64, 160),
+             (64, 77, 160)]
+# (B, Sq, Sk, H, D): the UNet's at CFG batch 16 and at batch 8 (the
+# cond-only segments of limited-interval CFG), and the VAE decoder's
+# mid-block attention at batch 8; then the ``fast`` walk's at its default
+# dispatch batch of 16 frames: the UNet's at CFG batch 32 (its cond-only
+# segments run at 16) and the decoder's at batch 16
+ATTN_SHAPES = ([(16, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+               + [(8, 4096, 4096, 1, 512)]
+               + [(8, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+               + [(32, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+               + [(16, 4096, 4096, 1, 512)])
+# (C, H, W, eps, silu) of the UNet's GroupNorm calls at 512²: the resnets'
+# (eps 1e-5, SiLU) and the transformers' input norms (1e-6, none)
+UNET_GN = [(320, 64, 64, 1e-5, True), (320, 64, 64, 1e-6, False),
+           (320, 32, 32, 1e-5, True), (640, 64, 64, 1e-5, True),
+           (640, 32, 32, 1e-5, True), (640, 32, 32, 1e-6, False),
+           (640, 16, 16, 1e-5, True), (960, 64, 64, 1e-5, True),
+           (960, 32, 32, 1e-5, True), (1280, 32, 32, 1e-5, True),
+           (1280, 16, 16, 1e-5, True), (1280, 16, 16, 1e-6, False),
+           (1280, 8, 8, 1e-5, True), (1280, 8, 8, 1e-6, False),
+           (1920, 32, 32, 1e-5, True), (1920, 16, 16, 1e-5, True),
+           (2560, 16, 16, 1e-5, True), (2560, 8, 8, 1e-5, True)]
+# (C, H, W, eps, silu) of the VAE decoder's GroupNorm calls at 512²
+VAE_GN = [(512, 64, 64, 1e-6, True), (512, 64, 64, 1e-6, False),
+          (512, 128, 128, 1e-6, True), (512, 256, 256, 1e-6, True),
+          (256, 256, 256, 1e-6, True), (256, 512, 512, 1e-6, True),
+          (128, 512, 512, 1e-6, True)]
+# (shape NCHW, eps, silu): every GroupNorm the walks run, the UNet's at CFG
+# batch 16 and at batch 8 (cond-only segments) and the VAE decoder's at
+# batch 8, then the ``fast`` walk's UNet at CFG batch 32 and decoder at
+# batch 16, with weights in x's dtype as the model's are.  Phases 5 and 6
+# fail if a walk launches either kernel at a (shape, eps, silu, dtype) that
+# phase 3 does not check.
+GN_SHAPES = [((b, c, h, w), eps, silu)
+             for b, table in ((16, UNET_GN), (8, VAE_GN), (8, UNET_GN),
+                              (32, UNET_GN), (16, VAE_GN))
+             for c, h, w, eps, silu in table]
 # the (eps, silu) pair the walk does not use, with fp32 weights: the
 # wrapper's other weight branch
 GN_EXTRA = [((16, 320, 64, 64), 1e-5, False)]
@@ -393,23 +410,27 @@ def png_size(path: Path) -> tuple[int, int]:
     return struct.unpack(">II", head[16:24])
 
 
-def phase_main(torch):
+def sd1_bundle(torch):
+    """The random bf16 SD 1.x bundle that phases 5 and 6 drive, on the
+    card."""
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
+    t0 = time.perf_counter()
+    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16).to(
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    print(f"random SD 1.x bundle built in {time.perf_counter() - t0:.1f} s")
+    return models
+
+
+def counted_run(torch, label: str, run):
+    """Call ``run()`` with every launch counter and plain-version counter
+    set to 0 just before, read them just after, and fail unless both
+    kernels launched, no plain version ran, and phase 3 checks every
+    (shape, dtype) key launched.  -> ({kernel: launches}, wall seconds)."""
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
         fused_groupnorm_silu, groupnorm_reference)
-    from stable_diffusion_videos_tpu_torch.pipeline import \
-        StableDiffusionWalkPipeline
-
-    t0 = time.perf_counter()
-    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16)
-    pipe = StableDiffusionWalkPipeline(models, device=torch.device("cuda"))
-    torch.cuda.synchronize()
-    print(f"main: random SD 1.x bundle built in "
-          f"{time.perf_counter() - t0:.1f} s")
-    run_dir = WORK / "chip_smoke_walk"
-    shutil.rmtree(run_dir, ignore_errors=True)
     counters = (flash_attention, fused_groupnorm_silu)
     plains = (flash_attention_reference, groupnorm_reference)
     for f in counters:
@@ -417,59 +438,170 @@ def phase_main(torch):
         f.by_shape.clear()
     for f in plains:
         f.calls = 0
-    t0 = time.perf_counter()
-    pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
-              seeds=[42, 1337], num_interpolation_steps=16,
-              output_dir=str(WORK), name="chip_smoke_walk", height=512,
-              width=512, num_inference_steps=50, guidance_scale=7.5,
-              batch_size=8, make_video=False)
     torch.cuda.synchronize()
-    walk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
     launches = {f.__name__: f.launches for f in counters}
     by_shape = {f.__name__: dict(f.by_shape) for f in counters}
     plain_calls = {f.__name__: f.calls for f in plains}
-    pngs = sorted(run_dir.glob("**/frame*.png"))
-    sizes = {png_size(p) for p in pngs}
-    print(f"main: walk wrote {len(pngs)} frames of {sizes} in {walk_s:.1f} s;"
-          f" launches {launches}; plain calls {plain_calls}")
+    print(f"{label}: launches {launches}; plain calls {plain_calls}")
     for name, counts in by_shape.items():
         for key, n in sorted(counts.items(), key=str):
-            print(f"main: {name} {key}: {n} launches in the walk's 2 "
-                  f"dispatches")
-    if len(pngs) != 16 or sizes != {(512, 512)}:
-        raise AssertionError(f"expected 16 frames of 512x512, got "
-                             f"{len(pngs)} of {sizes}")
+            print(f"{label}: {name} {key}: {n} launches")
     if min(launches.values()) <= 0 or max(plain_calls.values()) != 0:
-        raise AssertionError("the walk did not run on the kernels alone")
+        raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
     checked = ({(*s, bf16) for s in ATTN_SHAPES}
                | {(*c, bf16, bf16) for c in GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
                  if k not in checked]
     if unchecked:
-        raise AssertionError(f"phase 3 does not check the walk's launches "
-                             f"at {unchecked}")
+        raise AssertionError(f"phase 3 does not check the launches of "
+                             f"{label} at {unchecked}")
+    return launches, seconds
+
+
+def check_pngs(run_dir: Path, n: int):
+    pngs = sorted(run_dir.glob("**/frame*.png"))
+    sizes = {png_size(p) for p in pngs}
+    print(f"{run_dir.name}: {len(pngs)} frames of {sizes}")
+    if len(pngs) != n or sizes != {(512, 512)}:
+        raise AssertionError(f"expected {n} frames of 512x512, got "
+                             f"{len(pngs)} of {sizes}")
     shutil.rmtree(run_dir)
 
-    cond = pipe.embed_text("a red fox in the snow").expand(8, -1, -1)
-    uncond = pipe.embed_text("")
-    noise = torch.randn(8, 64, 64, 4,
-                        generator=torch.Generator().manual_seed(3))
-    frames = pipe.engine.denoise_frames(cond, uncond, noise,
-                                        num_inference_steps=50,
-                                        guidance_scale=7.5,
-                                        output_dtype="float32")
-    print(f"main: float32 dispatch {frames.shape} {frames.dtype} finite "
+
+def check_frames(label: str, frames: np.ndarray):
+    print(f"{label}: {frames.shape} {frames.dtype} finite "
           f"{bool(np.isfinite(frames).all())} std {frames.std():.4f}")
     if (frames.shape != (8, 512, 512, 3) or not np.isfinite(frames).all()
             or not frames.std() > 0):
-        raise AssertionError("the float32 dispatch is not finite frames "
-                             "with spread")
-    if max(f.calls for f in plains) != 0:
-        raise AssertionError("a plain version ran on the card's main path")
+        raise AssertionError(f"{label} is not finite frames with spread")
+
+
+def walk_16(pipe, name: str, steps: int, batch_size=8):
+    """2 prompts x 16 frames at 512², CFG 7.5: two dispatches at batch 8,
+    or with ``batch_size=None`` the pipeline's own default."""
+    shutil.rmtree(WORK / name, ignore_errors=True)
+    pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
+              seeds=[42, 1337], num_interpolation_steps=16,
+              output_dir=str(WORK), name=name, height=512, width=512,
+              num_inference_steps=steps, guidance_scale=7.5,
+              batch_size=batch_size, make_video=False)
+
+
+def dispatch_inputs(torch, pipe, frames: int = 8):
+    """(cond, uncond, noise) of one dispatch of ``frames`` frames at 512²."""
+    cond = pipe.embed_text("a red fox in the snow").expand(frames, -1, -1)
+    noise = torch.randn(frames, 64, 64, 4,
+                        generator=torch.Generator().manual_seed(3))
+    return cond, pipe.embed_text(""), noise
+
+
+def phase_main(torch, models):
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    pipe = StableDiffusionWalkPipeline(models, device=torch.device("cuda"))
+    launches, walk_s = counted_run(torch, "main", lambda: walk_16(
+        pipe, "chip_smoke_walk", 50))
+    check_pngs(WORK / "chip_smoke_walk", 16)
+    cond, uncond, noise = dispatch_inputs(torch, pipe)
+    counted_run(torch, "main float32 dispatch", lambda: check_frames(
+        "main: float32 dispatch", pipe.engine.denoise_frames(
+            cond, uncond, noise, num_inference_steps=50, guidance_scale=7.5,
+            output_dtype="float32")))
     print(f"main: {16 / walk_s:.4f} frames/s (walk wall time, first call "
           f"included) on {gpu_line()}")
     return launches
+
+
+def warm_seconds(torch, dispatch, runs: int = 3) -> tuple[float, list]:
+    """min and all of ``runs`` wall times of ``dispatch()``, which ends in a
+    device->host copy, after one call that warms it."""
+    dispatch()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dispatch()
+        times.append(time.perf_counter() - t0)
+    return min(times), ["%.4f" % t for t in times]
+
+
+def phase_fewstep(torch, models):
+    """dpm-20 x step_cache=2 "ends" walk, a fast-preset dispatch of 8
+    frames, a fast-preset walk at its own default batch (16), and the
+    full-width DeepCache splice; -> {run: {kernel: launches}}."""
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    dev = torch.device("cuda")
+    pipe = StableDiffusionWalkPipeline(models, dev, scheduler="dpm",
+                                       step_cache=2,
+                                       step_cache_policy="ends")
+    out = {}
+    out["dpm20_k2_ends"], walk_s = counted_run(
+        torch, "fewstep dpm-20 x k=2 ends walk",
+        lambda: walk_16(pipe, "chip_smoke_fewstep", 20))
+    check_pngs(WORK / "chip_smoke_fewstep", 16)
+    cond, uncond, noise = dispatch_inputs(torch, pipe)
+
+    warm, times = warm_seconds(torch, lambda: pipe.engine.denoise_frames(
+        cond, uncond, noise, num_inference_steps=20, guidance_scale=7.5,
+        output_dtype="uint8"))
+    line = gpu_line()
+    print(f"fewstep: dpm-20 x k=2 ends warm dispatch of 8 frames "
+          f"{warm:.4f} s (min of {times}), {8 / warm:.4f} frames/s, on "
+          f"{line}")
+    print(f"fewstep: walk of 16 frames {walk_s:.3f} s, {16 / walk_s:.4f} "
+          f"frames/s (first dispatch included) on {line}")
+
+    fast = StableDiffusionWalkPipeline(models, dev, fast=True)
+    out["fast"], fast_s = counted_run(
+        torch, "fewstep fast dispatch", lambda: check_frames(
+            "fewstep: fast dispatch", fast.engine.denoise_frames(
+                cond, uncond, noise, num_inference_steps=50,
+                guidance_scale=7.5, output_dtype="float32")))
+    print(f"fewstep: fast (pndm-50 x k=3 x interval (0.1, 0.85)) dispatch "
+          f"of 8 frames {fast_s:.4f} s (first call) on {line}")
+    # the walk a user of the preset gets: one dispatch of 16 frames, CFG
+    # segment at UNet batch 32
+    out["fast_walk"], fast_walk_s = counted_run(
+        torch, "fewstep fast walk", lambda: walk_16(
+            fast, "chip_smoke_fast", 50, batch_size=None))
+    check_pngs(WORK / "chip_smoke_fast", 16)
+    cond16, _, noise16 = dispatch_inputs(torch, fast, frames=16)
+    warm, times = warm_seconds(torch, lambda: fast.engine.denoise_frames(
+        cond16, uncond, noise16, num_inference_steps=50, guidance_scale=7.5,
+        output_dtype="uint8"), runs=2)
+    print(f"fewstep: fast walk of 16 frames at its default batch "
+          f"{fast_walk_s:.3f} s (first call included); warm dispatch of 16 "
+          f"frames {warm:.4f} s (min of {times}), {16 / warm:.4f} frames/s, "
+          f"on {line}")
+
+    # the splice at full width: CFG batch 16, split 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(16, 4, 64, 64, device=dev, generator=g)
+    t = torch.full((16,), 501.0, device=dev)
+    ctx = torch.cat([uncond.expand(8, -1, -1), cond])
+    with torch.no_grad():
+        plain = models.unet(x, t, ctx)
+        eps, deep = models.unet(x, t, ctx, cache_split=1)
+        shallow, _ = models.unet(x, t, ctx, cache_split=1, deep_feature=deep)
+    if tuple(deep.shape) != (16, 640, 64, 64) or deep.dtype != torch.bfloat16:
+        raise AssertionError(f"deep feature {tuple(deep.shape)} {deep.dtype}")
+    # the shallow pass reruns the full pass's kernels on the same inputs,
+    # so both passes must equal the plain call bit for bit
+    if not torch.equal(eps, plain) or not torch.equal(shallow, eps):
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in ((eps, plain), (shallow, eps))]
+        raise AssertionError(f"splice: split full pass vs plain max_abs_err "
+                             f"{errs[0]:.3e}, shallow vs full {errs[1]:.3e}")
+    print(f"fewstep: splice at batch 16: full pass with cache_split=1 and "
+          f"the shallow pass fed its deep feature {tuple(deep.shape)} both "
+          f"equal the plain call bit for bit")
+    return out
 
 
 def main():
@@ -484,7 +616,8 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches = None, None
+    summary, launches, fewstep = None, None, None
+    models = sd1_bundle(torch) if {"main", "fewstep"} & set(phases) else None
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -495,8 +628,10 @@ def main():
             summary = phase_kernels(torch)
         elif name == "golden":
             phase_golden(torch)
+        elif name == "main":
+            launches = phase_main(torch, models)
         else:
-            launches = phase_main(torch)
+            fewstep = phase_fewstep(torch, models)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -513,7 +648,11 @@ def main():
          "source": "stable_diffusion_videos_tpu_torch/csrc/groupnorm.cu",
          "replaces": "stable_diffusion_videos_tpu/ops/groupnorm.py:74",
          "launches": launches["fused_groupnorm_silu"]}]
+    wrapper = {"flash_attention": "flash_attention",
+               "groupnorm_silu": "fused_groupnorm_silu"}
     for k in kernels:
+        k["launches_fewstep"] = {run: counts[wrapper[k["name"]]]
+                                 for run, counts in fewstep.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

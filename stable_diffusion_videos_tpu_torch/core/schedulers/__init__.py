@@ -1,4 +1,4 @@
-"""Diffusion samplers (the port has PNDM)."""
+"""Diffusion samplers (the port has PNDM and DPM-Solver++ 2M)."""
 
 from .base import Scheduler, SchedulerConfig, get_scheduler
 

@@ -26,8 +26,14 @@ class SchedulerConfig:
     beta_schedule: str = "scaled_linear"
     prediction_type: str = "epsilon"
     steps_offset: int = 1
+    #: "leading" (the SD checkpoints) or "linspace"; DPM-Solver++ reads it
+    timestep_spacing: str = "leading"
     set_alpha_to_one: bool = False
+    # PNDM
     skip_prk_steps: bool = True
+    # DPM-Solver++ 2M (data prediction, second order: the only variant the
+    # port has, so it takes no order or algorithm setting)
+    lower_order_final: bool = True
 
 
 def betas_for_schedule(cfg: SchedulerConfig) -> np.ndarray:
@@ -90,8 +96,8 @@ def register(cls):
 
 
 def get_scheduler(name: str) -> Scheduler:
-    """Look up a sampler by name; the port has 'pndm'."""
-    from . import pndm  # noqa: F401  (registration)
+    """Look up a sampler by name; the port has 'pndm' and 'dpm'."""
+    from . import dpm, pndm  # noqa: F401  (registration)
     if name not in _REGISTRY:
         raise KeyError(f"unknown scheduler {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -3,10 +3,11 @@
 Counterpart of ``stable_diffusion_videos_tpu/models/unet.py`` on the SD 1.x
 path: conv_in, sinusoidal+MLP time embedding, cross-attention down blocks
 and a plain deepest block, a cross-attention mid block, the mirrored up path
-with skip concatenation, then GN+SiLU+conv_out.  Module names follow
-diffusers (``down_blocks.0.resnets.0...``).  DeepCache, ControlNet,
-IP-Adapter and SDXL conditioning are not ported: passing their inputs
-raises ``NotImplementedError``.
+with skip concatenation, then GN+SiLU+conv_out, and DeepCache's split into
+a deep trunk and a shallow pass.  Module names follow diffusers
+(``down_blocks.0.resnets.0...``).  ControlNet, IP-Adapter and SDXL
+conditioning are not ported: passing their inputs raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -139,13 +140,19 @@ class UNet2DCondition(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, *, cache_split=None,
                 deep_feature=None, ctrl_down=None, ctrl_mid=None,
-                ip_context=None, text_embeds=None,
-                time_ids=None) -> torch.Tensor:
+                ip_context=None, text_embeds=None, time_ids=None):
         """sample: (B, C, H, W) latents; timesteps: (B,) or scalar;
         encoder_hidden_states: (B, S, cross_attention_dim).  Returns the
-        fp32 noise prediction (B, C, H, W)."""
-        unported = dict(cache_split=cache_split, deep_feature=deep_feature,
-                        ctrl_down=ctrl_down, ctrl_mid=ctrl_mid,
+        fp32 noise prediction (B, C, H, W).
+
+        DeepCache (Ma et al. 2023): with ``cache_split`` the call returns
+        ``(eps, deep)``, where ``deep`` is the deep trunk's output entering
+        level ``cache_split - 1`` (after ``up_{cache_split}``'s upsample).
+        With ``deep_feature`` too, the call is the shallow pass: levels
+        below the split only, ``down_{split-1}``'s downsample skipped, the
+        mid block skipped, the given feature spliced in where the trunk's
+        output would be, and that same feature returned."""
+        unported = dict(ctrl_down=ctrl_down, ctrl_mid=ctrl_mid,
                         ip_context=ip_context, text_embeds=text_embeds,
                         time_ids=time_ids)
         for name, value in unported.items():
@@ -153,6 +160,12 @@ class UNet2DCondition(nn.Module):
                 raise NotImplementedError(
                     f"UNet2DCondition({name}=...) is not ported yet")
         cfg, dtype = self.config, self.dtype
+        n_levels = len(cfg.block_out_channels)
+        if cache_split is not None and not 1 <= cache_split <= n_levels - 1:
+            raise ValueError(f"cache_split must be in [1, {n_levels - 1}]")
+        shallow = deep_feature is not None
+        if shallow and cache_split is None:
+            raise ValueError("deep_feature requires cache_split")
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
@@ -162,24 +175,40 @@ class UNet2DCondition(nn.Module):
 
         x = self.conv_in(sample.to(dtype))
         skips = [x]
-        for blk in self.down_blocks:
+        down = self.down_blocks[:cache_split] if shallow else self.down_blocks
+        for level, blk in enumerate(down):
             for j in range(len(blk.resnets)):
                 x = blk.layer(j, x, temb, ctx)
                 skips.append(x)
-            if hasattr(blk, "downsamplers"):
+            # the shallow pass skips the downsample that feeds only the trunk
+            if hasattr(blk, "downsamplers") and not (
+                    shallow and level == cache_split - 1):
                 x = blk.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
-        x = self.mid_block.attentions[0](x, ctx)
-        x = self.mid_block.resnets[1](x, temb)
+        if shallow:
+            x = deep_feature.to(dtype)
+        else:
+            x = self.mid_block.resnets[0](x, temb)
+            x = self.mid_block.attentions[0](x, ctx)
+            x = self.mid_block.resnets[1](x, temb)
 
-        for blk in self.up_blocks:
+        deep_out = None
+        for i, blk in enumerate(self.up_blocks):
+            level = n_levels - 1 - i  # up_blocks run deepest level first
+            if shallow and level >= cache_split:
+                continue
             for j in range(len(blk.resnets)):
                 x = blk.layer(j, torch.cat([x, skips.pop()], dim=1), temb,
                               ctx)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
+            if cache_split is not None and not shallow \
+                    and level == cache_split:
+                deep_out = x
 
         x = self.conv_out(self.conv_norm_out(x, silu=True))
-        return x.float()
+        eps = x.float()
+        if cache_split is None:
+            return eps
+        return eps, deep_feature.to(dtype) if shallow else deep_out

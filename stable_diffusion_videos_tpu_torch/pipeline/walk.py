@@ -8,9 +8,11 @@ noise, ``negative_prompt``, audio-timed frames (``audio/analysis.py``),
 streamed video assembly (``media/video.py``), and a drain that saves batch N after batch
 N+1 has been enqueued on the device.
 
-Options of the JAX pipeline this port does not have yet (upsampling, the
-safety checker, ``fast``, FreeU, ToMe, prompt weighting, ControlNet,
-IP-Adapter, step caching, the edit paths) raise when they are asked for.
+The few-step levers are ported: DeepCache step caching, limited-interval
+CFG and the ``fast`` preset that combines them.  Options of the JAX
+pipeline this port does not have yet (upsampling, the safety checker,
+frozen noise, FreeU, ToMe, prompt weighting, ControlNet, IP-Adapter, the
+edit paths) raise when they are asked for.
 """
 
 from __future__ import annotations
@@ -37,9 +39,7 @@ from ..runtime.engine import Engine, refuse_unported
 
 logger = logging.getLogger("sdv_torch")
 
-_PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety", "fast",
-                      "step_cache", "step_cache_split",
-                      "step_cache_policy", "guidance_interval",
+_PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety",
                       "frozen_noise", "prompt_weighting", "controlnet",
                       "freeu", "ip_adapter", "tome", "mesh")
 _FRAMES_UNPORTED = ("upsample", "upsample_weights", "control_image",
@@ -51,14 +51,30 @@ _WALK_UNPORTED = ("upsample", "upsample_weights", "control_image",
 class StableDiffusionWalkPipeline:
     def __init__(self, models: SDModels, device: torch.device,
                  scheduler: str = "pndm", batch_bucket: Optional[int] = None,
-                 guidance_rescale: float = 0.0, **unported):
+                 fast: bool = False, step_cache: Optional[int] = None,
+                 step_cache_split: int = 1,
+                 step_cache_policy: str = "uniform",
+                 guidance_rescale: float = 0.0, guidance_interval=None,
+                 **unported):
         refuse_unported("StableDiffusionWalkPipeline", _PIPELINE_UNPORTED,
                         unported)
+        if fast:
+            # the JAX package's SD 1.x preset: step_cache=3 x
+            # guidance_interval (0.1, 0.85); explicit kwargs win
+            if step_cache is None:
+                step_cache = 3
+            if guidance_interval is None:
+                guidance_interval = (0.1, 0.85)
+        self.fast = bool(fast)
         self.models = models
         self.device = torch.device(device)
         self.engine = Engine(models, self.device, scheduler=scheduler,
                              batch_bucket=batch_bucket,
-                             guidance_rescale=guidance_rescale)
+                             step_cache=step_cache,
+                             step_cache_split=step_cache_split,
+                             step_cache_policy=step_cache_policy,
+                             guidance_rescale=guidance_rescale,
+                             guidance_interval=guidance_interval)
 
     @classmethod
     def tiny(cls, device: torch.device, seed: int = 0,
@@ -189,7 +205,9 @@ class StableDiffusionWalkPipeline:
         height = height or self.models.default_size
         width = width or self.models.default_size
         if batch_size is None:
-            batch_size = self.models.default_batch_size
+            # the JAX package's default: 16 under ``fast``, whose cond-only
+            # segments run one UNet row a frame
+            batch_size = 16 if self.fast else self.models.default_batch_size
         name = name or time.strftime("%Y%m%d-%H%M%S")
         save_path_root = Path(output_dir) / name
 

@@ -3,9 +3,11 @@
 Counterpart of the SD 1.x path of ``stable_diffusion_videos_tpu/runtime/
 engine.py``: text embedding with an LRU cache, host-built scheduler tables,
 a CFG loop over the sampler's steps (the JAX package's ``lax.scan`` as a
-Python loop; PyTorch enqueues the kernels asynchronously), the decode with
-on-device uint8 quantisation, and batch-bucket padding.  The boundary keeps
-the JAX package's layout: noise in ``(B, h, w, 4)``, frames out
+Python loop; PyTorch enqueues the kernels asynchronously), DeepCache step
+caching and limited-interval CFG (``lax.cond`` and the scan's segments as
+host decisions: no step reads anything back from the device), the decode
+with on-device uint8 quantisation, and batch-bucket padding.  The boundary
+keeps the JAX package's layout: noise in ``(B, h, w, 4)``, frames out
 ``(B, H, W, 3)``.
 
 Options of the JAX engine that this port does not have yet are refused when
@@ -25,9 +27,8 @@ from ..core.schedulers import get_scheduler
 from ..models.bundle import SDModels
 
 #: JAX Engine options this port does not have yet
-UNPORTED = ("step_cache", "step_cache_split", "step_cache_policy",
-            "guidance_interval", "frozen_noise", "tiny_decoder", "vae_tile",
-            "controlnet", "ip_adapter", "mesh", "spatial_shard", "debug")
+UNPORTED = ("frozen_noise", "tiny_decoder", "vae_tile", "controlnet",
+            "ip_adapter", "mesh", "spatial_shard", "debug")
 
 
 def refuse_unported(owner: str, allowed: tuple, options: dict) -> None:
@@ -59,10 +60,24 @@ def apply_guidance(eps_u: torch.Tensor, eps_c: torch.Tensor, guidance: float,
 class Engine:
     def __init__(self, models: SDModels, device: torch.device,
                  scheduler: str = "pndm", batch_bucket: Optional[int] = None,
-                 guidance_rescale: float = 0.0, **unported):
+                 step_cache: Optional[int] = None, step_cache_split: int = 1,
+                 step_cache_policy: str = "uniform",
+                 guidance_rescale: float = 0.0,
+                 guidance_interval: Optional[tuple] = None, **unported):
         refuse_unported("Engine", UNPORTED, unported)
+        if step_cache is not None and step_cache < 1:
+            raise ValueError("step_cache must be >= 1 (None = off)")
+        if step_cache_policy not in ("uniform", "ends"):
+            raise ValueError("step_cache_policy must be 'uniform' or 'ends'")
         if not 0.0 <= guidance_rescale <= 1.0:
             raise ValueError("guidance_rescale must be in [0, 1]")
+        if guidance_interval is not None:
+            lo, hi = (float(guidance_interval[0]),
+                      float(guidance_interval[1]))
+            if not 0.0 <= lo <= hi <= 1.0:
+                raise ValueError("guidance_interval must satisfy "
+                                 "0 <= lo <= hi <= 1")
+            guidance_interval = (lo, hi) if (lo, hi) != (0.0, 1.0) else None
         self.device = torch.device(device)
         #: the bundle's modules are moved to ``device`` in place
         self.models = models.to(self.device)
@@ -70,10 +85,32 @@ class Engine:
         self.sched = get_scheduler(scheduler)
         #: dispatch batches are padded up to a multiple of this
         self.batch_bucket = batch_bucket or 1
+        #: DeepCache step caching: the deep UNet trunk is recomputed every
+        #: ``step_cache`` steps and spliced into shallow passes in between;
+        #: ``step_cache_split`` is the level it is cached at
+        self.step_cache = step_cache
+        self.step_cache_split = step_cache_split
+        #: "uniform": a full trunk every k-th step of a segment; "ends": the
+        #: same budget placed densest at the segment's ends
+        self.step_cache_policy = step_cache_policy
         self.guidance_rescale = float(guidance_rescale)
+        #: limited-interval CFG (Kynkäänniemi et al. 2024): the CFG pair
+        #: runs for loop fractions in [lo, hi), the cond branch alone (half
+        #: the UNet rows) outside; (0, 1) or None = CFG everywhere
+        self.guidance_interval = guidance_interval
         self._lock = threading.Lock()
         self._tables_cache: dict = {}
         self._embed_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+
+    def set_scheduler(self, name: str) -> None:
+        """Switch the sampler on a live engine.  Tables are keyed by sampler
+        name, so they survive the switch; a dispatch reads (name, sampler)
+        once under the lock and finishes on that sampler."""
+        if name == self.scheduler_name:
+            return
+        sched = get_scheduler(name)  # raises KeyError before any change
+        with self._lock:
+            self.scheduler_name, self.sched = name, sched
 
     # ------------------------------------------------------------------
     # text embedding
@@ -109,13 +146,50 @@ class Engine:
     # ------------------------------------------------------------------
     # the denoise program
     # ------------------------------------------------------------------
-    def _tables(self, num_inference_steps: int):
-        key = (self.scheduler_name, num_inference_steps)
+    def _tables(self, sched_name: str, sched, num_inference_steps: int):
+        key = (sched_name, num_inference_steps)
         with self._lock:
             if key not in self._tables_cache:
-                self._tables_cache[key] = self.sched.make_tables(
+                self._tables_cache[key] = sched.make_tables(
                     self.models.scheduler_config, num_inference_steps)
             return self._tables_cache[key]
+
+    def _interval_segments(self, n_loop: int):
+        """[(start, stop, cfg_on)] loop segments implementing
+        ``guidance_interval``: CFG only where the loop fraction is in
+        [lo, hi)."""
+        if self.guidance_interval is None:
+            return [(0, n_loop, True)]
+        lo, hi = self.guidance_interval
+        i0, i1 = int(round(lo * n_loop)), int(round(hi * n_loop))
+        segs = [(0, i0, False), (i0, i1, True), (i1, n_loop, False)]
+        return [(a, b, c) for a, b, c in segs if b > a]
+
+    @staticmethod
+    def _full_trunk_mask(segments, n_loop: int, k: int) -> np.ndarray:
+        """Boolean (n_loop,) mask of the full-trunk steps of the "ends"
+        policy: ceil(len/k) a segment, as uniform-k spends, placed at
+        f(u) = u - sin(2πu)/2π of an even grid, so dense at both ends.  A
+        segment's first step is always full (f(0) = 0)."""
+        mask = np.zeros(n_loop, bool)
+        for a, b, _cfg in segments:
+            ln = b - a
+            m = -(-ln // k)
+            if m >= ln:
+                mask[a:b] = True
+                continue
+            u = np.linspace(0.0, 1.0, m, endpoint=False)
+            warped = u - np.sin(2.0 * np.pi * u) / (2.0 * np.pi)
+            idx = set(np.minimum(a + np.floor(warped * ln).astype(int),
+                                 b - 1).tolist())
+            # rounding collisions: top up to the budget with the unused
+            # indices nearest a segment end
+            spare = sorted((i for i in range(a, b) if i not in idx),
+                           key=lambda i: min(i - a, b - 1 - i))
+            for i in spare[:m - len(idx)]:
+                idx.add(i)
+            mask[sorted(idx)] = True
+        return mask
 
     def _decode(self, lat: torch.Tensor, out_u8: bool) -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> (B, H, W, 3) frames in [0, 1]:
@@ -129,19 +203,41 @@ class Engine:
         return imgs
 
     @torch.no_grad()
-    def _program(self, context, latents, guidance: float, tables,
+    def _program(self, context, latents, guidance: float, sched, tables,
                  out_u8: bool) -> torch.Tensor:
-        sched, unet = self.sched, self.models.unet
+        """The denoise loop and the decode.  Each ``guidance_interval``
+        segment runs with CFG (2B UNet rows, ``context`` whole) or cond-only
+        (B rows, its cond half).  With ``step_cache`` the full-trunk
+        decision is a host boolean, and the deep feature a Python variable
+        that each segment's first step (always full) sets."""
+        unet, k = self.models.unet, self.step_cache
+        split = self.step_cache_split if k else None
         lat = latents * sched.init_noise_sigma(tables)
         state = sched.init_state(tables, lat)
-        for i in range(sched.num_loop_steps(tables)):
-            inp = sched.scale_model_input(tables, state, i, lat)
-            inp2 = torch.cat([inp, inp])
-            tb = torch.full((inp2.shape[0],), sched.timestep(tables, i),
-                            dtype=torch.float32, device=self.device)
-            eps_u, eps_c = unet(inp2, tb, context).chunk(2)
-            eps = apply_guidance(eps_u, eps_c, guidance, self.guidance_rescale)
-            state, lat = sched.step(tables, state, i, eps, lat)
+        n_loop = sched.num_loop_steps(tables)
+        segments = self._interval_segments(n_loop)
+        full_mask = (self._full_trunk_mask(segments, n_loop, k)
+                     if k and self.step_cache_policy == "ends" else None)
+        for a, b, cfg_on in segments:
+            ctx = context if cfg_on else context[context.shape[0] // 2:]
+            deep = None
+            for i in range(a, b):
+                inp = sched.scale_model_input(tables, state, i, lat)
+                x = torch.cat([inp, inp]) if cfg_on else inp
+                tb = torch.full((x.shape[0],), sched.timestep(tables, i),
+                                dtype=torch.float32, device=self.device)
+                if k:
+                    full = (full_mask[i] if full_mask is not None
+                            else (i - a) % k == 0)
+                    eps, deep = unet(x, tb, ctx, cache_split=split,
+                                     deep_feature=None if full else deep)
+                else:
+                    eps = unet(x, tb, ctx)
+                if cfg_on:
+                    eps_u, eps_c = eps.chunk(2)
+                    eps = apply_guidance(eps_u, eps_c, guidance,
+                                         self.guidance_rescale)
+                state, lat = sched.step(tables, state, i, eps, lat)
         return self._decode(lat, out_u8)
 
     def _to_device(self, x) -> torch.Tensor:
@@ -156,7 +252,7 @@ class Engine:
         cond/uncond: (B, S, D) text embeddings (uncond may be (1, S, D));
         noise: (B, h, w, 4).  The batch is padded to the bucket, so callers
         slice ``[:valid]``.  ``output_dtype="uint8"`` quantises on the
-        device.  ``eta`` is a ddim parameter; pndm does not read it."""
+        device.  ``eta`` is a ddim parameter; pndm and dpm do not read it."""
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be float32 or uint8, "
                              f"got {output_dtype!r}")
@@ -175,8 +271,11 @@ class Engine:
 
         context = torch.cat([pad(uncond), pad(cond)])
         latents = pad(noise).permute(0, 3, 1, 2)
-        imgs = self._program(context, latents, float(guidance_scale),
-                             self._tables(num_inference_steps),
+        with self._lock:
+            sched_name, sched = self.scheduler_name, self.sched
+        imgs = self._program(context, latents, float(guidance_scale), sched,
+                             self._tables(sched_name, sched,
+                                          num_inference_steps),
                              output_dtype == "uint8")
         return imgs, B
 

@@ -148,14 +148,26 @@ def test_load_state_dict_is_strict(jax_tiny):
         load_state_dict(AutoencoderKL(VAEConfig.tiny()), bad)
 
 
-@pytest.mark.parametrize("kw", ["cache_split", "deep_feature", "ctrl_down",
-                                "ctrl_mid", "ip_context", "text_embeds",
-                                "time_ids"])
+@pytest.mark.parametrize("kw", ["ctrl_down", "ctrl_mid", "ip_context",
+                                "text_embeds", "time_ids"])
 def test_unet_refuses_unported_inputs(kw):
     m = SDModels.tiny()
     with pytest.raises(NotImplementedError, match=kw):
         m.unet(torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 32),
                **{kw: 1})
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(cache_split=2), "cache_split must be in"),
+    (dict(deep_feature=torch.zeros(1, 64, 8, 8)), "requires cache_split")],
+    ids=["split_out_of_bounds", "deep_feature_without_split"])
+def test_unet_checks_step_cache_inputs(kw, match):
+    """As the JAX UNet: the tiny UNet's split must be in [1, 1], and a deep
+    feature needs a split."""
+    m = SDModels.tiny()
+    with pytest.raises(ValueError, match=match):
+        m.unet(torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 32),
+               **kw)
 
 
 def test_bundles():

@@ -55,8 +55,13 @@ def test_pndm_five_step_run_matches_jax():
 
 
 def test_only_pndm_is_ported():
-    with pytest.raises(KeyError, match="ddim"):
-        get_scheduler("ddim")
+    """pndm and dpm are ported; the JAX package's other samplers still
+    raise."""
+    assert get_scheduler("pndm").name == "pndm"
+    assert get_scheduler("dpm").name == "dpm"
+    for name in ("ddim", "lms", "euler", "euler_ancestral", "unipc", "lcm"):
+        with pytest.raises(KeyError, match=name):
+            get_scheduler(name)
 
 
 @pytest.mark.parametrize("near", [False, True], ids=["slerp", "lerp_branch"])

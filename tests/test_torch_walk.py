@@ -25,6 +25,8 @@ from stable_diffusion_videos_tpu_torch.models.weights import (
 from stable_diffusion_videos_tpu_torch.pipeline import \
     StableDiffusionWalkPipeline
 
+from torch_threads import few_torch_threads  # noqa: F401 (autouse)
+
 CPU = torch.device("cpu")
 WALK = dict(prompts=["a red fox", "a blue lighthouse"], seeds=[7, 1234],
             num_interpolation_steps=3, height=64, width=64,
@@ -112,8 +114,8 @@ def test_walk_with_video_and_audio(tmp_path):
 
 @pytest.mark.parametrize("where,kw", [
     ("walk", dict(upsample=True)), ("walk", dict(control_image="x.png")),
-    ("pipeline", dict(fast=True)), ("pipeline", dict(tome=0.5)),
-    ("engine", dict(step_cache=2)), ("engine", dict(vae_tile=32))])
+    ("pipeline", dict(controlnet="x")), ("pipeline", dict(tome=0.5)),
+    ("engine", dict(frozen_noise=True)), ("engine", dict(vae_tile=32))])
 def test_unported_options_raise(where, kw, tmp_path):
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
     with pytest.raises(NotImplementedError):
@@ -127,8 +129,9 @@ def test_unported_options_raise(where, kw, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A walk with video and audio imports neither jax nor the JAX
-    package, not even its host-only modules."""
+    """A walk with video and audio, and one with dpm x ``step_cache=2``,
+    import neither jax nor the JAX package, not even its host-only
+    modules."""
     wav = click_track(tmp_path / "beat.wav")
     code = (
         "import sys, torch\n"
@@ -139,6 +142,10 @@ def test_port_never_imports_jax(tmp_path):
         "num_inference_steps=2, batch_size=2, make_video=True, fps=2, "
         f"audio_filepath={str(wav)!r}, "
         f"output_dir={str(tmp_path)!r}, name='n')\n"
+        "P.tiny(torch.device('cpu'), scheduler='dpm', step_cache=2).walk("
+        "prompts=['a', 'b'], seeds=[1, 2], num_interpolation_steps=2, "
+        "height=32, width=32, num_inference_steps=3, batch_size=2, "
+        f"make_video=False, output_dir={str(tmp_path)!r}, name='d')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
@@ -146,6 +153,7 @@ def test_port_never_imports_jax(tmp_path):
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
                    cwd=Path(__file__).resolve().parent.parent, env=env)
     assert len(list(tmp_path.glob("n/**/frame*.png"))) == 2
+    assert len(list(tmp_path.glob("d/**/frame*.png"))) == 2
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
