@@ -30,7 +30,17 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    whose cond-only segments run the UNet at batch 8), the ``fast`` preset's
    ``walk()`` at its own default batch of 16 (UNet batch 32 under CFG; warm
    seconds a dispatch), and the full-width DeepCache splice at batch 16;
-   each run's launches by shape, every one of which phase 3 checks.
+   each run's launches by shape, every one of which phase 3 checks;
+7. distilled: the distilled point on the same weights: lcm-4 cond-only
+   (``guidance_interval=(0.0, 0.0)``, guidance 1.0) under ``frozen_noise``
+   at batch 8, a 16-frame ``walk()`` and warm seconds a dispatch with the KL
+   decoder, then with the TAESD tiny decoder at its published geometry; one
+   10-step CFG dispatch of 8 frames (UNet batch 16) per remaining sampler
+   (ddim at eta 0 and 0.5, euler, euler_ancestral, lms, unipc), each
+   sampler's steps on the card held against the same steps on the CPU in
+   fp32; and ``decode_latents_tiled`` of (8, 4, 128, 128) latents (1024²
+   frames) in 64-latent tiles overlapping by 16; each run's launches by
+   shape, every one of which phase 3 checks.
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -54,10 +64,13 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
-PHASES = ("env", "build", "kernels", "golden", "main", "fewstep")
+PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
+          "distilled")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# the sampler math on the card against the CPU, fp32
+SAMPLER_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16 attention is also held to the output's own scale: at S=4096 the flat
 # 2e-2 is about one output std (softmax over ~1500 effective keys), so alone
 # it would pass a kernel that drops a key tile.  Limits: max|out-ref| over
@@ -411,12 +424,12 @@ def png_size(path: Path) -> tuple[int, int]:
 
 
 def sd1_bundle(torch):
-    """The random bf16 SD 1.x bundle that phases 5 and 6 drive, on the
-    card."""
+    """The random bf16 SD 1.x bundle that phases 5-7 drive, with the TAESD
+    decoder at its published geometry, on the card."""
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     t0 = time.perf_counter()
-    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16).to(
-        torch.device("cuda"))
+    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16,
+                             taesd=True).to(torch.device("cuda"))
     torch.cuda.synchronize()
     print(f"random SD 1.x bundle built in {time.perf_counter() - t0:.1f} s")
     return models
@@ -473,22 +486,22 @@ def check_pngs(run_dir: Path, n: int):
     shutil.rmtree(run_dir)
 
 
-def check_frames(label: str, frames: np.ndarray):
+def check_frames(label: str, frames: np.ndarray, shape=(8, 512, 512, 3)):
     print(f"{label}: {frames.shape} {frames.dtype} finite "
           f"{bool(np.isfinite(frames).all())} std {frames.std():.4f}")
-    if (frames.shape != (8, 512, 512, 3) or not np.isfinite(frames).all()
+    if (frames.shape != shape or not np.isfinite(frames).all()
             or not frames.std() > 0):
         raise AssertionError(f"{label} is not finite frames with spread")
 
 
-def walk_16(pipe, name: str, steps: int, batch_size=8):
-    """2 prompts x 16 frames at 512², CFG 7.5: two dispatches at batch 8,
-    or with ``batch_size=None`` the pipeline's own default."""
+def walk_16(pipe, name: str, steps: int, batch_size=8, guidance=7.5):
+    """2 prompts x 16 frames at 512²: two dispatches at batch 8, or with
+    ``batch_size=None`` the pipeline's own default."""
     shutil.rmtree(WORK / name, ignore_errors=True)
     pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
               seeds=[42, 1337], num_interpolation_steps=16,
               output_dir=str(WORK), name=name, height=512, width=512,
-              num_inference_steps=steps, guidance_scale=7.5,
+              num_inference_steps=steps, guidance_scale=guidance,
               batch_size=batch_size, make_video=False)
 
 
@@ -604,6 +617,110 @@ def phase_fewstep(torch, models):
     return out
 
 
+def check_sampler_on_card(torch, name: str, eta: float, steps: int = 10):
+    """The sampler's scale_model_input and step on the card against the
+    same calls on the CPU, fp32, on the same inputs: (8, 4, 64, 64) latents
+    at the sampler's initial sigma, a model output and (stochastic
+    samplers) a noise field a step, all drawn on the host.  -> max abs
+    error."""
+    from stable_diffusion_videos_tpu_torch.core.schedulers import (
+        SchedulerConfig, get_scheduler)
+    sched = get_scheduler(name)
+    tables = sched.make_tables(SchedulerConfig(), steps,
+                               **({"eta": eta} if name == "ddim" else {}))
+    g = torch.Generator().manual_seed(7)
+    shape = (8, 4, 64, 64)
+    x0 = torch.randn(shape, generator=g) * sched.init_noise_sigma(tables)
+    n = sched.num_loop_steps(tables)
+    outs = [torch.randn(shape, generator=g) for _ in range(n)]
+    noises = ([torch.randn(shape, generator=g) for _ in range(n)]
+              if sched.draws_noise(tables) else [None] * n)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        x = x0.to(dev)
+        state, trace = sched.init_state(tables, x), []
+        for i in range(n):
+            inp = sched.scale_model_input(tables, state, i, x)
+            noise = None if noises[i] is None else noises[i].to(dev)
+            state, x = sched.step(tables, state, i, outs[i].to(dev), x,
+                                  noise)
+            trace += [inp.cpu(), x.cpu()]
+        runs[dev] = trace
+    err = 0.0
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        torch.testing.assert_close(a, b, **SAMPLER_TOL,
+                                   msg=lambda m: f"{name} on the card: {m}")
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def phase_distilled(torch, models):
+    """lcm-4 cond-only frozen walk and dispatches with the KL and the tiny
+    decoder, one 10-step CFG dispatch per remaining sampler with its device
+    check, and the tiled decode at 1024²; -> {run: {kernel: launches}}."""
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    dev = torch.device("cuda")
+    line = gpu_line()
+    lcm = dict(scheduler="lcm", guidance_interval=(0.0, 0.0),
+               frozen_noise=True)
+    run = dict(num_inference_steps=4, guidance_scale=1.0)
+    pipe = StableDiffusionWalkPipeline(models, dev, **lcm)
+    out = {}
+    out["lcm4_walk"], walk_s = counted_run(
+        torch, "distilled lcm-4 walk", lambda: walk_16(
+            pipe, "chip_smoke_lcm", 4, guidance=1.0))
+    check_pngs(WORK / "chip_smoke_lcm", 16)
+    print(f"distilled: lcm-4 walk of 16 frames {walk_s:.3f} s, "
+          f"{16 / walk_s:.4f} frames/s (first dispatch included) on {line}")
+    cond, uncond, noise = dispatch_inputs(torch, pipe)
+    tiny = Engine(models, dev, tiny_decoder=True, **lcm)
+    for label, eng in (("KL decoder", pipe.engine), ("TAESD", tiny)):
+        key = "lcm4_taesd" if eng is tiny else "lcm4_dispatch"
+        out[key], _ = counted_run(
+            torch, f"distilled lcm-4 dispatch, {label}", lambda: check_frames(
+                f"distilled: lcm-4 dispatch, {label}", eng.denoise_frames(
+                    cond, uncond, noise, output_dtype="float32", **run)))
+        warm, times = warm_seconds(torch, lambda: eng.denoise_frames(
+            cond, uncond, noise, output_dtype="uint8", **run))
+        print(f"distilled: lcm-4 cond-only frozen warm dispatch of 8 frames, "
+              f"{label}: {warm:.4f} s (min of {times}), {8 / warm:.4f} "
+              f"frames/s, on {line}")
+
+    for name, eta in (("ddim", 0.0), ("ddim", 0.5), ("euler", 0.0),
+                      ("euler_ancestral", 0.0), ("lms", 0.0),
+                      ("unipc", 0.0)):
+        label = f"{name}-10" + (f" eta {eta}" if eta else "")
+        eng = Engine(models, dev, scheduler=name)
+        out[label.replace(" ", "_")], secs = counted_run(
+            torch, f"distilled {label} dispatch", lambda: check_frames(
+                f"distilled: {label} dispatch", eng.denoise_frames(
+                    cond, uncond, noise, num_inference_steps=10,
+                    guidance_scale=7.5, eta=eta, output_dtype="float32")))
+        err = check_sampler_on_card(torch, name, eta)
+        print(f"distilled: {label} CFG dispatch of 8 frames {secs:.4f} s "
+              f"(first call); its steps on the card vs the CPU, fp32: "
+              f"max_abs_err {err:.3e} ({SAMPLER_TOL})")
+
+    tiled = Engine(models, dev, vae_tile=64, vae_tile_overlap=16)
+    lat = torch.randn(8, 128, 128, 4, generator=torch.Generator()
+                      .manual_seed(9))
+    frames = {}
+    out["tiled_decode"], tiled_s = counted_run(
+        torch, "distilled tiled decode", lambda: frames.update(
+            x=tiled.decode_latents_tiled(lat)))
+    check_frames("distilled: decode_latents_tiled of (8, 4, 128, 128)",
+                 frames["x"], shape=(8, 1024, 1024, 3))
+    warm, times = warm_seconds(torch, lambda: tiled.decode_latents_tiled(
+        lat), runs=2)
+    print(f"distilled: decode_latents_tiled (8, 4, 128, 128) -> "
+          f"{frames['x'].shape}, tile 64 overlap 16 (9 tiles): first "
+          f"{tiled_s:.4f} s, warm {warm:.4f} s (min of {times}), frames "
+          f"copied to the host, on {line}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -616,8 +733,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep = None, None, None
-    models = sd1_bundle(torch) if {"main", "fewstep"} & set(phases) else None
+    summary, launches, fewstep, distilled = None, None, None, None
+    models = (sd1_bundle(torch)
+              if {"main", "fewstep", "distilled"} & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -630,8 +748,10 @@ def main():
             phase_golden(torch)
         elif name == "main":
             launches = phase_main(torch, models)
-        else:
+        elif name == "fewstep":
             fewstep = phase_fewstep(torch, models)
+        else:
+            distilled = phase_distilled(torch, models)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -653,6 +773,8 @@ def main():
     for k in kernels:
         k["launches_fewstep"] = {run: counts[wrapper[k["name"]]]
                                  for run, counts in fewstep.items()}
+        k["launches_distilled"] = {run: counts[wrapper[k["name"]]]
+                                   for run, counts in distilled.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

@@ -1,4 +1,5 @@
-"""Diffusion samplers (the port has PNDM and DPM-Solver++ 2M)."""
+"""Diffusion samplers: pndm, dpm, ddim, euler, euler_ancestral, lms, unipc
+and lcm, the JAX package's eight."""
 
 from .base import Scheduler, SchedulerConfig, get_scheduler
 

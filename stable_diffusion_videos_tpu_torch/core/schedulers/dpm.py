@@ -67,7 +67,7 @@ class DPMSolverMultistep(Scheduler):
     def init_state(self, tables, latents):
         return {"m1": torch.zeros_like(latents, dtype=torch.float32)}
 
-    def step(self, tables, state, i, model_output, sample):
+    def step(self, tables, state, i, model_output, sample, noise=None):
         a_c, s_c = tables["alpha_cur"][i], tables["sigma_cur"][i]
         a_p, s_p = tables["alpha_prev"][i], tables["sigma_prev"][i]
         h, h0 = tables["h"][i], tables["h0"][i]

@@ -66,7 +66,7 @@ class PNDM(Scheduler):
         zeros = torch.zeros_like(latents, dtype=torch.float32)
         return {"ets": [zeros] * 4, "cur_sample": zeros}
 
-    def step(self, tables, state, i, model_output, sample):
+    def step(self, tables, state, i, model_output, sample, noise=None):
         eps = model_output.float()
         x = sample.float()
         ets = ([eps] + state["ets"][:3]) if tables["append"][i] \

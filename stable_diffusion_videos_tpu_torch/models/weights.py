@@ -7,7 +7,8 @@
   ``export_vae``, ``export_text_encoder``), written with numpy alone because
   that module imports jax: conv HWIO -> OIHW, dense (in, out) -> (out, in),
   norm scale -> weight, ``to_out`` -> ``to_out.0``, ``ff.proj_in`` ->
-  ``ff.net.0.proj``.
+  ``ff.net.0.proj``.  The TAESD decoder's tree maps to diffusers
+  ``AutoencoderTiny`` names (``decoder.layers.N``, conv_in at 0).
 * ``load_state_dict(module, state_dict)`` loads diffusers-named numpy arrays,
   strict about missing and unexpected keys within the module (keys of parts
   the slice does not port, ``SKIPPED_PREFIXES``, are dropped).
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from .clip_text import CLIPTextConfig
+from .taesd import TAESDConfig
 from .unet import UNetConfig
 from .vae import VAEConfig
 
@@ -167,12 +169,34 @@ def _text(p, config: CLIPTextConfig, out):
         _lin(blk["fc2"], f"{b}.mlp.fc2", out)
 
 
-_MAPPINGS = {UNetConfig: _unet, VAEConfig: _vae, CLIPTextConfig: _text}
+def _taesd_block(p, pfx, out):
+    for k in range(3):
+        _conv(p[f"conv_{k}"], f"{pfx}.conv.{2 * k}", out)
+
+
+def _taesd(p, config: TAESDConfig, out):
+    """The decoder's Sequential: conv_in, ReLU, [blocks, Upsample, conv] a
+    stage, block_out, conv_out."""
+    _conv(p["conv_in"], "decoder.layers.0", out)
+    i = 2
+    for s in range(config.num_stages):
+        for j in range(config.blocks_per_stage):
+            _taesd_block(p[f"up_{s}_block_{j}"], f"decoder.layers.{i}", out)
+            i += 1
+        _conv(p[f"up_{s}_conv"], f"decoder.layers.{i + 1}", out)
+        i += 2
+    _taesd_block(p["block_out"], f"decoder.layers.{i}", out)
+    _conv(p["conv_out"], f"decoder.layers.{i + 1}", out)
+
+
+_MAPPINGS = {UNetConfig: _unet, VAEConfig: _vae, CLIPTextConfig: _text,
+             TAESDConfig: _taesd}
 
 
 def from_jax_params(tree: dict, config) -> dict[str, np.ndarray]:
-    """JAX flax variables ``{"params": ...}`` of a UNet, VAE or CLIP text
-    encoder -> the diffusers-named state dict, chosen by the config's type."""
+    """JAX flax variables ``{"params": ...}`` of a UNet, VAE, CLIP text
+    encoder or TAESD decoder -> the diffusers-named state dict, chosen by
+    the config's type."""
     out: dict[str, np.ndarray] = {}
     _MAPPINGS[type(config)](tree["params"], config, out)
     return out

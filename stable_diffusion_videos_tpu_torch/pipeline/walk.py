@@ -9,10 +9,13 @@ streamed video assembly (``media/video.py``), and a drain that saves batch N aft
 N+1 has been enqueued on the device.
 
 The few-step levers are ported: DeepCache step caching, limited-interval
-CFG and the ``fast`` preset that combines them.  Options of the JAX
-pipeline this port does not have yet (upsampling, the safety checker,
-frozen noise, FreeU, ToMe, prompt weighting, ControlNet, IP-Adapter, the
-edit paths) raise when they are asked for.
+CFG and the ``fast`` preset that combines them, every sampler of the JAX
+package, and frozen transition noise.  Each dispatch of a stochastic
+sampler draws its noise from a ``torch.Generator`` seeded from both clip
+seeds and the batch index, or under ``frozen_noise`` from one video-level
+seed.  Options of the JAX pipeline this port does not have yet
+(upsampling, the safety checker, FreeU, ToMe, prompt weighting, ControlNet,
+IP-Adapter, the edit paths) raise when they are asked for.
 """
 
 from __future__ import annotations
@@ -40,12 +43,21 @@ from ..runtime.engine import Engine, refuse_unported
 logger = logging.getLogger("sdv_torch")
 
 _PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety",
-                      "frozen_noise", "prompt_weighting", "controlnet",
-                      "freeu", "ip_adapter", "tome", "mesh")
+                      "prompt_weighting", "controlnet", "freeu",
+                      "ip_adapter", "tome", "mesh")
 _FRAMES_UNPORTED = ("upsample", "upsample_weights", "control_image",
-                    "ip_image", "noise_key")
+                    "ip_image")
 _WALK_UNPORTED = ("upsample", "upsample_weights", "control_image",
                   "ip_image", "params", "jit")
+
+
+def dispatch_seed(seed_a: int, seed_b: int, batch_idx: int) -> int:
+    """A 64-bit generator seed mixed from both clip seeds and the batch
+    index."""
+    mask = 2 ** 64 - 1
+    return int(np.random.SeedSequence(
+        [int(seed_a) & mask, int(seed_b) & mask, int(batch_idx)])
+        .generate_state(1, np.uint64)[0])
 
 
 class StableDiffusionWalkPipeline:
@@ -55,7 +67,7 @@ class StableDiffusionWalkPipeline:
                  step_cache_split: int = 1,
                  step_cache_policy: str = "uniform",
                  guidance_rescale: float = 0.0, guidance_interval=None,
-                 **unported):
+                 frozen_noise: bool = False, **unported):
         refuse_unported("StableDiffusionWalkPipeline", _PIPELINE_UNPORTED,
                         unported)
         if fast:
@@ -74,7 +86,8 @@ class StableDiffusionWalkPipeline:
                              step_cache_split=step_cache_split,
                              step_cache_policy=step_cache_policy,
                              guidance_rescale=guidance_rescale,
-                             guidance_interval=guidance_interval)
+                             guidance_interval=guidance_interval,
+                             frozen_noise=frozen_noise)
 
     @classmethod
     def tiny(cls, device: torch.device, seed: int = 0,
@@ -128,8 +141,16 @@ class StableDiffusionWalkPipeline:
                          image_file_ext: str = ".png", T=None, skip: int = 0,
                          negative_prompt: Optional[str] = None,
                          step: Optional[tuple] = None, frame_sink=None,
-                         **unported):
-        """Generate and save the frames of one prompt-pair clip."""
+                         noise_key: Optional[int] = None, **unported):
+        """Generate and save the frames of one prompt-pair clip.
+
+        ``noise_key``: the seed of every dispatch's transition-noise
+        generator (``walk()`` passes one video-level seed under
+        ``frozen_noise``, so the frozen field is constant across batch and
+        clip boundaries).  Without it each dispatch's seed mixes both clip
+        seeds and the batch index (the batch index is 0 under
+        ``frozen_noise``), so clips that share ``seed_a`` draw decoupled
+        noise."""
         refuse_unported("make_clip_frames", _FRAMES_UNPORTED, unported)
         if image_file_ext != ".png":
             raise ValueError("the PyTorch package writes .png frames only")
@@ -169,10 +190,16 @@ class StableDiffusionWalkPipeline:
                             f"[{step[0]}/{step[1]}]" if step else "",
                             batch_idx, frame_index,
                             frame_index + len(noise) - 1, skip + len(T))
+                noise_seed = (noise_key if noise_key is not None
+                              else dispatch_seed(seed_a, seed_b, 0
+                                                 if self.engine.frozen_noise
+                                                 else batch_idx))
                 imgs, valid = self.engine.denoise_frames_async(
                     embeds, uncond, noise,
                     num_inference_steps=num_inference_steps,
                     guidance_scale=guidance_scale, eta=eta,
+                    generator=torch.Generator(self.device).manual_seed(
+                        noise_seed),
                     output_dtype="uint8")
                 # overlap: save the previous batch while this one computes
                 if pending is not None:
@@ -268,6 +295,9 @@ class StableDiffusionWalkPipeline:
             ), indent=4, sort_keys=True))
 
         audio_start_sec = audio_start_sec or 0.0
+        # frozen_noise: one transition-noise seed for the whole video, from
+        # the first seed, so no batch or clip boundary resets the field
+        walk_noise_key = int(seeds[0]) if self.engine.frozen_noise else None
         clip_pairs = list(zip(prompts, prompts[1:], seeds, seeds[1:],
                               num_interpolation_steps))
         for i, (prompt_a, prompt_b, seed_a, seed_b, num_step) in enumerate(
@@ -328,7 +358,8 @@ class StableDiffusionWalkPipeline:
                         width=width, batch_size=batch_size,
                         image_file_ext=image_file_ext, T=T, skip=skip,
                         negative_prompt=negative_prompt,
-                        step=(i, len(clip_pairs)), frame_sink=frame_sink)
+                        step=(i, len(clip_pairs)), frame_sink=frame_sink,
+                        noise_key=walk_noise_key)
                     if frame_sink is not None:
                         frame_sink.close()
                 except BaseException:

@@ -6,9 +6,13 @@ a CFG loop over the sampler's steps (the JAX package's ``lax.scan`` as a
 Python loop; PyTorch enqueues the kernels asynchronously), DeepCache step
 caching and limited-interval CFG (``lax.cond`` and the scan's segments as
 host decisions: no step reads anything back from the device), the decode
-with on-device uint8 quantisation, and batch-bucket padding.  The boundary
-keeps the JAX package's layout: noise in ``(B, h, w, 4)``, frames out
-``(B, H, W, 3)``.
+with on-device uint8 quantisation, and batch-bucket padding.  The stochastic
+samplers draw their transition noise on the device from a
+``torch.Generator`` (one field broadcast over the batch under
+``frozen_noise``); the decode is the KL decoder, whole or in overlapping
+tiles (``vae_tile``), or the TAESD tiny decoder (``tiny_decoder``).  The
+boundary keeps the JAX package's layout: noise in ``(B, h, w, 4)``, frames
+out ``(B, H, W, 3)``.
 
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
@@ -18,17 +22,22 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.schedulers import get_scheduler
+from ..core.schedulers.base import transition_noise
 from ..models.bundle import SDModels
 
 #: JAX Engine options this port does not have yet
-UNPORTED = ("frozen_noise", "tiny_decoder", "vae_tile", "controlnet",
-            "ip_adapter", "mesh", "spatial_shard", "debug")
+UNPORTED = ("controlnet", "ip_adapter", "mesh", "spatial_shard", "debug")
+
+#: the stochastic samplers' noise source: a generator on the engine's
+#: device, or a callable ``(i, latents) -> field`` that replaces the draws
+NoiseSource = Union[torch.Generator,
+                    Callable[[int, torch.Tensor], torch.Tensor]]
 
 
 def refuse_unported(owner: str, allowed: tuple, options: dict) -> None:
@@ -63,8 +72,18 @@ class Engine:
                  step_cache: Optional[int] = None, step_cache_split: int = 1,
                  step_cache_policy: str = "uniform",
                  guidance_rescale: float = 0.0,
-                 guidance_interval: Optional[tuple] = None, **unported):
+                 guidance_interval: Optional[tuple] = None,
+                 frozen_noise: bool = False, tiny_decoder: bool = False,
+                 vae_tile: Optional[int] = None, vae_tile_overlap: int = 16,
+                 **unported):
         refuse_unported("Engine", UNPORTED, unported)
+        if tiny_decoder and models.taesd_decoder() is None:
+            raise ValueError(
+                "tiny_decoder=True requires TAESD weights on the bundle: "
+                "models = models.with_taesd(config, state_dict); see "
+                "models/taesd.py")
+        if vae_tile is not None and not 0 <= vae_tile_overlap < vae_tile:
+            raise ValueError("vae_tile_overlap must be in [0, vae_tile)")
         if step_cache is not None and step_cache < 1:
             raise ValueError("step_cache must be >= 1 (None = off)")
         if step_cache_policy not in ("uniform", "ends"):
@@ -98,14 +117,25 @@ class Engine:
         #: runs for loop fractions in [lo, hi), the cond branch alone (half
         #: the UNet rows) outside; (0, 1) or None = CFG everywhere
         self.guidance_interval = guidance_interval
+        #: the stochastic samplers (lcm, euler_ancestral, ddim with eta > 0)
+        #: draw one transition-noise field a step and broadcast it over the
+        #: batch: a walk dispatch holds adjacent frames of one trajectory,
+        #: where independent per-frame noise reads as flicker
+        self.frozen_noise = bool(frozen_noise)
+        #: decode through the TAESD tiny decoder instead of the KL decoder
+        self.tiny_decoder = bool(tiny_decoder)
+        #: decode the KL decoder in overlapping latent tiles of this side
+        #: (None: whole frames); the tiny decoder always decodes whole
+        self.vae_tile = vae_tile
+        self.vae_tile_overlap = vae_tile_overlap
         self._lock = threading.Lock()
         self._tables_cache: dict = {}
         self._embed_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 
     def set_scheduler(self, name: str) -> None:
         """Switch the sampler on a live engine.  Tables are keyed by sampler
-        name, so they survive the switch; a dispatch reads (name, sampler)
-        once under the lock and finishes on that sampler."""
+        name (and eta), so they survive the switch; a dispatch reads (name,
+        sampler) once under the lock and finishes on that sampler."""
         if name == self.scheduler_name:
             return
         sched = get_scheduler(name)  # raises KeyError before any change
@@ -146,12 +176,15 @@ class Engine:
     # ------------------------------------------------------------------
     # the denoise program
     # ------------------------------------------------------------------
-    def _tables(self, sched_name: str, sched, num_inference_steps: int):
-        key = (sched_name, num_inference_steps)
+    def _tables(self, sched_name: str, sched, num_inference_steps: int,
+                eta: float):
+        key = (sched_name, num_inference_steps, float(eta))
         with self._lock:
             if key not in self._tables_cache:
+                kwargs = {"eta": float(eta)} if sched_name == "ddim" else {}
                 self._tables_cache[key] = sched.make_tables(
-                    self.models.scheduler_config, num_inference_steps)
+                    self.models.scheduler_config, num_inference_steps,
+                    **kwargs)
             return self._tables_cache[key]
 
     def _interval_segments(self, n_loop: int):
@@ -192,24 +225,80 @@ class Engine:
         return mask
 
     def _decode(self, lat: torch.Tensor, out_u8: bool) -> torch.Tensor:
-        """Scaled latents (B, 4, h, w) -> (B, H, W, 3) frames in [0, 1]:
-        divide by the scaling factor, decode, clip in fp32, and with
-        ``out_u8`` round and quantise on the device."""
-        scale = self.models.vae_config.scaling_factor
-        imgs = self.models.vae.decode(lat / scale)
-        imgs = (imgs.float() / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
-        if out_u8:
-            imgs = torch.round(imgs * 255.0).to(torch.uint8)
-        return imgs
+        """Scaled latents (B, 4, h, w) -> (B, H, W, 3) frames in [0, 1]: the
+        KL decoder (divided by the scaling factor first, output mapped from
+        [-1, 1]) or the tiny decoder (takes the scaled latents, emits
+        [0, 1]), clipped in fp32, and with ``out_u8`` rounded and quantised
+        on the device."""
+        if self.tiny_decoder:
+            imgs = self.models.taesd.decode(lat).float()
+        else:
+            scale = self.models.vae_config.scaling_factor
+            imgs = self.models.vae.decode(lat / scale).float() / 2 + 0.5
+        imgs = imgs.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+        return quantise(imgs) if out_u8 else imgs
+
+    def _decode_frames(self, lat: torch.Tensor, out_u8: bool) -> torch.Tensor:
+        """The dispatch's decode: tiled under ``vae_tile`` (KL decoder
+        only), else whole."""
+        if self.vae_tile is not None and not self.tiny_decoder:
+            imgs = self._decode_tiled(lat)
+            return quantise(imgs.clamp(0.0, 1.0)) if out_u8 else imgs
+        return self._decode(lat, out_u8)
+
+    def _decode_tiled(self, lat: torch.Tensor) -> torch.Tensor:
+        """Scaled latents (B, 4, h, w) -> float32 (B, H, W, 3) frames,
+        decoded in overlapping ``vae_tile`` latent tiles whose seams blend
+        with linear ramps.  Every tile is exactly ``vae_tile`` wide (the
+        last position clamps back), so the decoder runs at one shape; an
+        axis below one tile is decoded whole."""
+        tile, ov = self.vae_tile, self.vae_tile_overlap
+        b, _, h, w = lat.shape
+        if h <= tile and w <= tile:
+            return self._decode(lat, out_u8=False)
+        f = self.models.vae_scale_factor
+        dev = lat.device
+
+        def ramp(n_pix: int, lo_edge: bool, hi_edge: bool) -> torch.Tensor:
+            r = torch.ones(n_pix, device=dev)
+            e = ov * f
+            if e and lo_edge:
+                r[:e] = torch.arange(e, device=dev) / e
+            if e and hi_edge:
+                r[-e:] = 1.0 - torch.arange(e, device=dev) / max(e - 1, 1)
+            return r
+
+        def positions(dim: int) -> list:
+            if dim <= tile:
+                return [0]
+            pos = list(range(0, dim - tile + 1, tile - ov))
+            if pos[-1] != dim - tile:
+                pos.append(dim - tile)
+            return pos
+
+        ty, tx = min(tile, h), min(tile, w)
+        out = torch.zeros(b, h * f, w * f, 3, device=dev)
+        weight = torch.zeros(1, h * f, w * f, 1, device=dev)
+        for y0 in positions(h):
+            for x0 in positions(w):
+                y1, x1 = y0 + ty, x0 + tx
+                img = self._decode(lat[:, :, y0:y1, x0:x1], out_u8=False)
+                wmap = (ramp(ty * f, y0 > 0, y1 < h)[:, None]
+                        * ramp(tx * f, x0 > 0, x1 < w)[None, :])[None, :, :,
+                                                                 None]
+                out[:, y0 * f:y1 * f, x0 * f:x1 * f] += img * wmap
+                weight[:, y0 * f:y1 * f, x0 * f:x1 * f] += wmap
+        return out / weight.clamp_min(1e-8)
 
     @torch.no_grad()
     def _program(self, context, latents, guidance: float, sched, tables,
-                 out_u8: bool) -> torch.Tensor:
+                 out_u8: bool, generator: NoiseSource) -> torch.Tensor:
         """The denoise loop and the decode.  Each ``guidance_interval``
         segment runs with CFG (2B UNet rows, ``context`` whole) or cond-only
         (B rows, its cond half).  With ``step_cache`` the full-trunk
         decision is a host boolean, and the deep feature a Python variable
-        that each segment's first step (always full) sets."""
+        that each segment's first step (always full) sets.  A stochastic
+        sampler's step gets a noise field drawn on the device."""
         unet, k = self.models.unet, self.step_cache
         split = self.step_cache_split if k else None
         lat = latents * sched.init_noise_sigma(tables)
@@ -218,6 +307,13 @@ class Engine:
         segments = self._interval_segments(n_loop)
         full_mask = (self._full_trunk_mask(segments, n_loop, k)
                      if k and self.step_cache_policy == "ends" else None)
+        if not sched.draws_noise(tables):
+            draw = None
+        elif isinstance(generator, torch.Generator):
+            def draw(i, x):
+                return transition_noise(generator, x, self.frozen_noise)
+        else:
+            draw = generator
         for a, b, cfg_on in segments:
             ctx = context if cfg_on else context[context.shape[0] // 2:]
             deep = None
@@ -237,8 +333,9 @@ class Engine:
                     eps_u, eps_c = eps.chunk(2)
                     eps = apply_guidance(eps_u, eps_c, guidance,
                                          self.guidance_rescale)
-                state, lat = sched.step(tables, state, i, eps, lat)
-        return self._decode(lat, out_u8)
+                state, lat = sched.step(tables, state, i, eps, lat,
+                                        draw(i, lat) if draw else None)
+        return self._decode_frames(lat, out_u8)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
@@ -246,13 +343,19 @@ class Engine:
     def denoise_frames_async(self, cond, uncond, noise, *,
                              num_inference_steps: int = 50,
                              guidance_scale: float = 7.5, eta: float = 0.0,
+                             generator: Optional[NoiseSource] = None,
                              output_dtype: str = "float32"):
         """Enqueue one dispatch; returns (frames on the device, valid).
 
         cond/uncond: (B, S, D) text embeddings (uncond may be (1, S, D));
         noise: (B, h, w, 4).  The batch is padded to the bucket, so callers
         slice ``[:valid]``.  ``output_dtype="uint8"`` quantises on the
-        device.  ``eta`` is a ddim parameter; pndm and dpm do not read it."""
+        device (after the blend, under ``vae_tile``).  ``eta`` is a ddim
+        parameter.  ``generator`` is the stochastic samplers' noise source
+        (the JAX engine's ``key``): a ``torch.Generator`` on the engine's
+        device, by default one seeded 0, or a callable ``(i, latents) ->
+        field`` (fields of the latents' shape, or ``(1, C, h, w)`` to
+        broadcast over the batch) that replaces the draws."""
         if output_dtype not in ("float32", "uint8"):
             raise ValueError(f"output_dtype must be float32 or uint8, "
                              f"got {output_dtype!r}")
@@ -273,10 +376,12 @@ class Engine:
         latents = pad(noise).permute(0, 3, 1, 2)
         with self._lock:
             sched_name, sched = self.scheduler_name, self.sched
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
         imgs = self._program(context, latents, float(guidance_scale), sched,
                              self._tables(sched_name, sched,
-                                          num_inference_steps),
-                             output_dtype == "uint8")
+                                          num_inference_steps, eta),
+                             output_dtype == "uint8", generator)
         return imgs, B
 
     def denoise_frames(self, cond, uncond, noise, **kw) -> np.ndarray:
@@ -287,6 +392,21 @@ class Engine:
 
     @torch.no_grad()
     def decode_latents(self, latents) -> np.ndarray:
-        """(B, h, w, 4) scaled latents -> float32 (B, H, W, 3) in [0, 1]."""
+        """(B, h, w, 4) scaled latents -> float32 (B, H, W, 3) in [0, 1]:
+        whole, or in tiles when ``vae_tile`` is set."""
         lat = self._to_device(latents).float().permute(0, 3, 1, 2)
-        return self._decode(lat, out_u8=False).cpu().numpy()
+        return self._decode_frames(lat, out_u8=False).cpu().numpy()
+
+    @torch.no_grad()
+    def decode_latents_tiled(self, latents) -> np.ndarray:
+        """(B, h, w, 4) scaled latents -> float32 (B, 8h, 8w, 3) frames,
+        decoded by the KL decoder in overlapping ``vae_tile`` tiles."""
+        if self.vae_tile is None:
+            raise ValueError("decode_latents_tiled needs Engine(vae_tile=...)")
+        lat = self._to_device(latents).float().permute(0, 3, 1, 2)
+        return self._decode_tiled(lat).cpu().numpy()
+
+
+def quantise(imgs: torch.Tensor) -> torch.Tensor:
+    """[0, 1] float frames -> uint8, rounded, on their device."""
+    return torch.round(imgs * 255.0).to(torch.uint8)

@@ -9,8 +9,10 @@ dispatch under ``torch.profiler`` and prints device time by kernel family
 and the device idle share.  Then the few-step point on the same weights:
 one full and one shallow (DeepCache, split 1) UNet call at CFG batch 16
 timed with CUDA events, two dpm-20 x ``step_cache=2`` "ends" dispatches
-timed as above, and one under the profiler.  Needs a CUDA device; exits
-non-zero without one.
+timed as above, and one under the profiler.  Then the distilled point: lcm-4
+cond-only under frozen noise at batch 8, two dispatches timed and one
+profiled, with the KL decoder and with the TAESD tiny decoder.  Needs a
+CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -97,7 +99,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16)
+    models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16,
+                             taesd=True)
     pipe = StableDiffusionWalkPipeline(models, dev)
     eng = pipe.engine
     cond = pipe.embed_text("a red fox").expand(8, -1, -1)
@@ -105,10 +108,11 @@ def main():
     noise = torch.randn(8, 64, 64, 4,
                         generator=torch.Generator().manual_seed(0))
 
-    def dispatch(engine, steps):
+    def dispatch(engine, steps, guidance=7.5):
         # ends in a device->host copy
         return lambda: engine.denoise_frames(cond, uncond, noise,
                                              num_inference_steps=steps,
+                                             guidance_scale=guidance,
                                              output_dtype="uint8")
 
     timed_dispatches(dispatch(eng, 50), "pndm-50")
@@ -132,6 +136,13 @@ def main():
                  step_cache_policy="ends")
     timed_dispatches(dispatch(few, 20), "dpm-20 x k=2 ends")
     profiled(dispatch(few, 20), "dpm-20 x k=2 ends")
+
+    for tiny in (False, True):
+        label = "lcm-4 cond-only frozen, " + ("TAESD" if tiny else "KL")
+        lcm = Engine(models, dev, scheduler="lcm", frozen_noise=True,
+                     guidance_interval=(0.0, 0.0), tiny_decoder=tiny)
+        timed_dispatches(dispatch(lcm, 4, guidance=1.0), label)
+        profiled(dispatch(lcm, 4, guidance=1.0), label)
 
 
 if __name__ == "__main__":

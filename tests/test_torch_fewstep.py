@@ -216,8 +216,8 @@ def test_set_scheduler_switches_and_refuses_unknown_names():
     eng = Engine(SDModels.tiny(), CPU)
     eng.set_scheduler("dpm")
     assert eng.scheduler_name == "dpm" and eng.sched.name == "dpm"
-    with pytest.raises(KeyError, match="ddim"):
-        eng.set_scheduler("ddim")
+    with pytest.raises(KeyError, match="heun"):
+        eng.set_scheduler("heun")
     assert eng.scheduler_name == "dpm"
     with pytest.raises(ValueError, match="step_cache"):
         Engine(SDModels.tiny(), CPU, step_cache=0)

@@ -55,13 +55,14 @@ def test_pndm_five_step_run_matches_jax():
 
 
 def test_only_pndm_is_ported():
-    """pndm and dpm are ported; the JAX package's other samplers still
-    raise."""
-    assert get_scheduler("pndm").name == "pndm"
-    assert get_scheduler("dpm").name == "dpm"
-    for name in ("ddim", "lms", "euler", "euler_ancestral", "unipc", "lcm"):
-        with pytest.raises(KeyError, match=name):
-            get_scheduler(name)
+    """Every sampler of the JAX package is served (the name is historical:
+    pndm came first); an unknown name raises."""
+    from stable_diffusion_videos_tpu.core.schedulers import SCHEDULER_NAMES
+    assert len(SCHEDULER_NAMES) == 8
+    for name in SCHEDULER_NAMES:
+        assert get_scheduler(name).name == name
+    with pytest.raises(KeyError, match="heun"):
+        get_scheduler("heun")
 
 
 @pytest.mark.parametrize("near", [False, True], ids=["slerp", "lerp_branch"])

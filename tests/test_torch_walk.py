@@ -115,7 +115,7 @@ def test_walk_with_video_and_audio(tmp_path):
 @pytest.mark.parametrize("where,kw", [
     ("walk", dict(upsample=True)), ("walk", dict(control_image="x.png")),
     ("pipeline", dict(controlnet="x")), ("pipeline", dict(tome=0.5)),
-    ("engine", dict(frozen_noise=True)), ("engine", dict(vae_tile=32))])
+    ("engine", dict(ip_adapter="x")), ("engine", dict(debug=True))])
 def test_unported_options_raise(where, kw, tmp_path):
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
     with pytest.raises(NotImplementedError):
@@ -129,9 +129,10 @@ def test_unported_options_raise(where, kw, tmp_path):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A walk with video and audio, and one with dpm x ``step_cache=2``,
-    import neither jax nor the JAX package, not even its host-only
-    modules."""
+    """A walk with video and audio, one with dpm x ``step_cache=2``, one
+    with lcm under ``frozen_noise``, and decodes through the tiny decoder
+    and in tiles import neither jax nor the JAX package, not even its
+    host-only modules."""
     wav = click_track(tmp_path / "beat.wav")
     code = (
         "import sys, torch\n"
@@ -146,6 +147,20 @@ def test_port_never_imports_jax(tmp_path):
         "prompts=['a', 'b'], seeds=[1, 2], num_interpolation_steps=2, "
         "height=32, width=32, num_inference_steps=3, batch_size=2, "
         f"make_video=False, output_dir={str(tmp_path)!r}, name='d')\n"
+        "P.tiny(torch.device('cpu'), scheduler='lcm', frozen_noise=True)"
+        ".walk(prompts=['a', 'b'], seeds=[1, 2], num_interpolation_steps=2, "
+        "height=32, width=32, num_inference_steps=2, batch_size=2, "
+        f"make_video=False, output_dir={str(tmp_path)!r}, name='l')\n"
+        "from stable_diffusion_videos_tpu_torch.models.bundle import "
+        "SDModels\n"
+        "from stable_diffusion_videos_tpu_torch.runtime.engine import "
+        "Engine\n"
+        "lat = torch.randn(1, 12, 20, 4)\n"
+        "for kw in (dict(tiny_decoder=True),\n"
+        "           dict(vae_tile=8, vae_tile_overlap=2)):\n"
+        "    e = Engine(SDModels.tiny(taesd=True), torch.device('cpu'), "
+        "**kw)\n"
+        "    assert e.decode_latents(lat).shape == (1, 24, 40, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
@@ -154,6 +169,7 @@ def test_port_never_imports_jax(tmp_path):
                    cwd=Path(__file__).resolve().parent.parent, env=env)
     assert len(list(tmp_path.glob("n/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("d/**/frame*.png"))) == 2
+    assert len(list(tmp_path.glob("l/**/frame*.png"))) == 2
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
