@@ -40,7 +40,18 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    sampler's steps on the card held against the same steps on the CPU in
    fp32; and ``decode_latents_tiled`` of (8, 4, 128, 128) latents (1024²
    frames) in 64-latent tiles overlapping by 16; each run's launches by
-   shape, every one of which phase 3 checks.
+   shape, every one of which phase 3 checks;
+8. families: SD 2.x and SDXL-base at their published widths on random bf16
+   weights (each bundle's build time printed): SDXL-base ``walk()`` at
+   1024², 2 prompts x 2 frames at its default batch of 1, pndm-50, CFG 7.5,
+   warm seconds of one frame's dispatch, and one ``fast=True`` dispatch
+   (``step_cache=2``); SD 2.1 768-v ``walk()`` at 768², 2 prompts x 4
+   frames, ddim-50 under v-prediction, CFG 7.5, dispatch batch 8 (the
+   bucket pads 4 frames to 8), and warm seconds of one 8-frame dispatch;
+   each run's launches by shape, every one of which phase 3 checks (its
+   rows of these families run in bf16 only, the walks' dtype, with the
+   D=64 rows also timed at the depth 80 that served them before the
+   depth-64 instantiation).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -65,7 +76,7 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled")
+          "distilled", "families")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -126,6 +137,50 @@ GN_SHAPES = [((b, c, h, w), eps, silu)
 # the (eps, silu) pair the walk does not use, with fp32 weights: the
 # wrapper's other weight branch
 GN_EXTRA = [((16, 320, 64, 64), 1e-5, False)]
+
+# Phase 8's families, 64-channel heads at every UNet level.  SD 2.1 768-v at
+# 768² (latents 96²): the SD 1.x UNet's structure with (5, 10, 20, 20)
+# heads; (Sq, Sk, H) of its self- and cross-attentions
+SD2_ATTN = [(9216, 9216, 5), (9216, 77, 5), (2304, 2304, 10),
+            (2304, 77, 10), (576, 576, 20), (576, 77, 20), (144, 144, 20),
+            (144, 77, 20)]
+# SDXL-base at 1024² (latents 128²): attention at levels 1 (10 heads) and 2
+# and the mid block (20 heads) only
+XL_ATTN = [(4096, 4096, 10), (4096, 77, 10), (1024, 1024, 20),
+           (1024, 77, 20)]
+# (B, Sq, Sk, H, D): SD 2.x's UNet at CFG batch 16 and its decoder's
+# mid-block at batch 8 (768²), SDXL's UNet at CFG batch 2 and its decoder's
+# at batch 1 (1024²)
+FAMILY_ATTN_SHAPES = ([(16, sq, sk, h, 64) for sq, sk, h in SD2_ATTN]
+                      + [(8, 9216, 9216, 1, 512)]
+                      + [(2, sq, sk, h, 64) for sq, sk, h in XL_ATTN]
+                      + [(1, 16384, 16384, 1, 512)])
+# SDXL's UNet GroupNorm calls at 1024², (C, H, W, eps, silu): three levels
+# (320, 640, 1280) at 128², 64², 32², with the up path's concatenations
+XL_UNET_GN = [(320, 128, 128, 1e-5, True), (320, 64, 64, 1e-5, True),
+              (640, 64, 64, 1e-5, True), (640, 64, 64, 1e-6, False),
+              (640, 32, 32, 1e-5, True), (1280, 32, 32, 1e-5, True),
+              (1280, 32, 32, 1e-6, False), (2560, 32, 32, 1e-5, True),
+              (1920, 32, 32, 1e-5, True), (1920, 64, 64, 1e-5, True),
+              (1280, 64, 64, 1e-5, True), (960, 64, 64, 1e-5, True),
+              (960, 128, 128, 1e-5, True), (640, 128, 128, 1e-5, True)]
+
+
+def scaled_gn(table, num: int, den: int = 1):
+    """A GroupNorm table at another image size: spatial sides x num/den."""
+    return [(c, h * num // den, w * num // den, eps, silu)
+            for c, h, w, eps, silu in table]
+
+
+# SD 2.x's UNet (SD 1.x's structure) at 768² and CFG batch 16, its decoder
+# at batch 8; SDXL's UNet at CFG batch 2 and its decoder at 1024², batch 1
+# (groups of 8.4M elements, 16.8 MB, at (1, 256, 1024, 1024))
+FAMILY_GN_SHAPES = [((b, c, h, w), eps, silu)
+                    for b, table in ((16, scaled_gn(UNET_GN, 3, 2)),
+                                     (8, scaled_gn(VAE_GN, 3, 2)),
+                                     (2, XL_UNET_GN),
+                                     (1, scaled_gn(VAE_GN, 2)))
+                    for c, h, w, eps, silu in table]
 
 
 def gpu_line() -> str:
@@ -241,6 +296,19 @@ def check_attn_scaled(name, out, q, k, v, ref, reference) -> str:
     return text
 
 
+def plain_attention(torch, reference, q, k, v, scale=None):
+    """The plain version over batch chunks whose fp32 scores stay within 4
+    GB (SD 2.x's level 0 at CFG batch 16 would hold 27 GB at once): the
+    same function on the same inputs."""
+    b, sq, h, _ = q.shape
+    step = max(1, int(4e9 // (4 * h * sq * k.shape[1])))
+    if step >= b:
+        return reference(q, k, v, scale)
+    return torch.cat([
+        reference(q[i:i + step], k[i:i + step], v[i:i + step], scale)
+        for i in range(0, b, step)])
+
+
 def attn_bound(b, sq, sk, h, d, elem_bytes) -> tuple[float, str]:
     """Least time (ms) for one attention call and what sets it: q·kᵀ and
     p·v are 4·B·H·Sq·Sk·D operations at the type's peak; q, k, v read once
@@ -274,13 +342,20 @@ def phase_kernels(torch):
         flash_attention, flash_attention_reference)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
         fused_groupnorm_silu, groupnorm_reference)
+    from stable_diffusion_videos_tpu_torch.ops import build
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    lib = build.library()
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                           bound_ms=0.0, bound_by={})
                for name in ("flash_attention", "groupnorm_silu")}
+    # the same sums over the rows phase 8's families add
+    family = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+              for name in summary}
+    family_keys = ({(*s, torch.bfloat16) for s in FAMILY_ATTN_SHAPES}
+                   | {(*c, torch.bfloat16) for c in FAMILY_GN_SHAPES})
 
-    def record(name, text, dt, err, ms, pms, lms, bound):
+    def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
         print(f"{text}: max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
               f"{pms:.4f} ms library {lms:.4f} ms bound {b_ms:.4f} ms "
@@ -293,35 +368,59 @@ def phase_kernels(torch):
             s["library_ms"] += lms
             s["bound_ms"] += b_ms
             s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
+            if (*key, dt) in family_keys:
+                f = family[name]
+                for field, value in (("ms", ms), ("plain_ms", pms),
+                                     ("library_ms", lms),
+                                     ("bound_ms", b_ms)):
+                    f[field] += value
 
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
         eb = torch.finfo(dt).bits // 8
-        for b, sq, sk, h, d in ATTN_SHAPES:
+        # the families' rows in the walks' dtype only
+        shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES
+                                if dt == torch.bfloat16 else [])
+        for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
             k = torch.randn(b, sk, h, d, device=dev, generator=g).to(dt)
             v = torch.randn(b, sk, h, d, device=dev, generator=g).to(dt)
             name = f"attn {dn} B={b} Sq={sq} Sk={sk} H={h} D={d}"
+            if dt == torch.bfloat16:
+                depth = lib.sdv_flash_attention_depth(d)
+                if d == 64 and depth != 64:
+                    raise AssertionError(f"{name} runs at depth {depth}")
+                name += f" (depth {depth})"
+
+            def plain(q_, k_, v_, scale=None):
+                return plain_attention(torch, flash_attention_reference,
+                                       q_, k_, v_, scale)
             out = flash_attention(q, k, v)
-            ref = flash_attention_reference(q, k, v)
+            ref = plain(q, k, v)
             err = compare(torch, name, out, ref, dn)
             scaled = ("" if dt != torch.bfloat16 else "; " + check_attn_scaled(
-                name, out, q, k, v, ref, flash_attention_reference))
+                name, out, q, k, v, ref, plain))
             del out, ref
             ms = time_ms(torch, lambda: flash_attention(q, k, v))
-            pms = time_ms(torch, lambda: flash_attention_reference(q, k, v))
+            pms = time_ms(torch, lambda: plain(q, k, v))
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lms = time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qh, kh, vh))
             del qh, kh, vh
-            record("flash_attention", name + scaled, dt, err, ms, pms, lms,
-                   attn_bound(b, sq, sk, h, d, eb))
+            if dt == torch.bfloat16 and d == 64:
+                # the work of the depth these heads ran at before: inputs
+                # zero-padded to 80 columns
+                q8, k8, v8 = (F.pad(t, (0, 16)) for t in (q, k, v))
+                ms80 = time_ms(torch, lambda: flash_attention(q8, k8, v8))
+                scaled += f"; at depth 80 {ms80:.4f} ms"
+                del q8, k8, v8
+            record("flash_attention", (b, sq, sk, h, d), name + scaled, dt,
+                   err, ms, pms, lms, attn_bound(b, sq, sk, h, d, eb))
             del q, k, v
         if dt == torch.bfloat16:
-            from stable_diffusion_videos_tpu_torch.ops import build
             q = torch.zeros(16, 4096, 8, 40, device=dev, dtype=dt)
-            us = build.library().sdv_tensor_map_encode_us(q.data_ptr(), 16,
-                                                          4096, 8, 40, 1000)
+            us = lib.sdv_tensor_map_encode_us(q.data_ptr(), 16, 4096, 8, 40,
+                                              1000)
             if us < 0:
                 raise AssertionError("tensor map encoding failed")
             print(f"host: a bf16 attention call encodes its three TMA "
@@ -329,6 +428,8 @@ def phase_kernels(torch):
             del q
         for shape, eps, silu, w_dt in (
                 [(*c, dt) for c in GN_SHAPES]
+                + [(*c, dt) for c in (FAMILY_GN_SHAPES
+                                      if dt == torch.bfloat16 else [])]
                 + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
             scale = torch.randn(shape[1], device=dev, generator=g).to(w_dt)
@@ -348,10 +449,16 @@ def phase_kernels(torch):
             lms = time_ms(torch, (lambda: F.silu(F.group_norm(
                 x, 32, sx, bx, eps))) if silu else (lambda: F.group_norm(
                     x, 32, sx, bx, eps)))
-            record("groupnorm_silu", name, dt, err, ms, pms, lms,
-                   gn_bound(shape, silu, eb))
+            group_mb = np.prod(shape[1:]) // 32 * eb / 1e6
+            record("groupnorm_silu", (shape, eps, silu),
+                   f"{name} ({group_mb:.1f} MB a group)", dt, err, ms, pms,
+                   lms, gn_bound(shape, silu, eb))
             del x
         torch.cuda.empty_cache()
+    for name, f in family.items():
+        print(f"{name}: the families' bf16 rows sum to kernel "
+              f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, library "
+              f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms")
     return summary
 
 
@@ -466,8 +573,8 @@ def counted_run(torch, label: str, run):
     if min(launches.values()) <= 0 or max(plain_calls.values()) != 0:
         raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
-    checked = ({(*s, bf16) for s in ATTN_SHAPES}
-               | {(*c, bf16, bf16) for c in GN_SHAPES})
+    checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES}
+               | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
                  if k not in checked]
     if unchecked:
@@ -476,12 +583,12 @@ def counted_run(torch, label: str, run):
     return launches, seconds
 
 
-def check_pngs(run_dir: Path, n: int):
+def check_pngs(run_dir: Path, n: int, side: int = 512):
     pngs = sorted(run_dir.glob("**/frame*.png"))
     sizes = {png_size(p) for p in pngs}
     print(f"{run_dir.name}: {len(pngs)} frames of {sizes}")
-    if len(pngs) != n or sizes != {(512, 512)}:
-        raise AssertionError(f"expected {n} frames of 512x512, got "
+    if len(pngs) != n or sizes != {(side, side)}:
+        raise AssertionError(f"expected {n} frames of {side}x{side}, got "
                              f"{len(pngs)} of {sizes}")
     shutil.rmtree(run_dir)
 
@@ -494,13 +601,14 @@ def check_frames(label: str, frames: np.ndarray, shape=(8, 512, 512, 3)):
         raise AssertionError(f"{label} is not finite frames with spread")
 
 
-def walk_16(pipe, name: str, steps: int, batch_size=8, guidance=7.5):
-    """2 prompts x 16 frames at 512²: two dispatches at batch 8, or with
-    ``batch_size=None`` the pipeline's own default."""
+def walk_clip(pipe, name: str, steps: int, batch_size=8, guidance=7.5,
+            frames: int = 16, side: int = 512):
+    """2 prompts x ``frames`` frames (16: two dispatches at batch 8) at
+    ``side``², or with ``batch_size=None`` the pipeline's own batch."""
     shutil.rmtree(WORK / name, ignore_errors=True)
     pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
-              seeds=[42, 1337], num_interpolation_steps=16,
-              output_dir=str(WORK), name=name, height=512, width=512,
+              seeds=[42, 1337], num_interpolation_steps=frames,
+              output_dir=str(WORK), name=name, height=side, width=side,
               num_inference_steps=steps, guidance_scale=guidance,
               batch_size=batch_size, make_video=False)
 
@@ -517,7 +625,7 @@ def phase_main(torch, models):
     from stable_diffusion_videos_tpu_torch.pipeline import \
         StableDiffusionWalkPipeline
     pipe = StableDiffusionWalkPipeline(models, device=torch.device("cuda"))
-    launches, walk_s = counted_run(torch, "main", lambda: walk_16(
+    launches, walk_s = counted_run(torch, "main", lambda: walk_clip(
         pipe, "chip_smoke_walk", 50))
     check_pngs(WORK / "chip_smoke_walk", 16)
     cond, uncond, noise = dispatch_inputs(torch, pipe)
@@ -556,7 +664,7 @@ def phase_fewstep(torch, models):
     out = {}
     out["dpm20_k2_ends"], walk_s = counted_run(
         torch, "fewstep dpm-20 x k=2 ends walk",
-        lambda: walk_16(pipe, "chip_smoke_fewstep", 20))
+        lambda: walk_clip(pipe, "chip_smoke_fewstep", 20))
     check_pngs(WORK / "chip_smoke_fewstep", 16)
     cond, uncond, noise = dispatch_inputs(torch, pipe)
 
@@ -581,7 +689,7 @@ def phase_fewstep(torch, models):
     # the walk a user of the preset gets: one dispatch of 16 frames, CFG
     # segment at UNet batch 32
     out["fast_walk"], fast_walk_s = counted_run(
-        torch, "fewstep fast walk", lambda: walk_16(
+        torch, "fewstep fast walk", lambda: walk_clip(
             fast, "chip_smoke_fast", 50, batch_size=None))
     check_pngs(WORK / "chip_smoke_fast", 16)
     cond16, _, noise16 = dispatch_inputs(torch, fast, frames=16)
@@ -669,7 +777,7 @@ def phase_distilled(torch, models):
     pipe = StableDiffusionWalkPipeline(models, dev, **lcm)
     out = {}
     out["lcm4_walk"], walk_s = counted_run(
-        torch, "distilled lcm-4 walk", lambda: walk_16(
+        torch, "distilled lcm-4 walk", lambda: walk_clip(
             pipe, "chip_smoke_lcm", 4, guidance=1.0))
     check_pngs(WORK / "chip_smoke_lcm", 16)
     print(f"distilled: lcm-4 walk of 16 frames {walk_s:.3f} s, "
@@ -721,6 +829,96 @@ def phase_distilled(torch, models):
     return out
 
 
+def family_bundle(torch, family: str, seed: int):
+    """A random bf16 bundle of ``family`` at its published widths, on the
+    card, with its build time printed."""
+    from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
+    t0 = time.perf_counter()
+    models = SDModels.random(family, seed=seed, dtype=torch.bfloat16).to(
+        torch.device("cuda"))
+    torch.cuda.synchronize()
+    n = sum(p.numel() for m in (models.unet, models.vae, models.text_encoder,
+                                models.text_encoder_2) if m is not None
+            for p in m.parameters())
+    print(f"families: random {family} bundle ({n / 1e9:.3f}B parameters) "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    return models
+
+
+def phase_families(torch):
+    """SDXL-base at 1024² and SD 2.1 768-v at 768² at their published
+    widths: walks, warm dispatches and one SDXL ``fast`` dispatch; -> {run:
+    {kernel: launches}}."""
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    dev = torch.device("cuda")
+    line = gpu_line()
+    prompt, out = "a red fox in the snow", {}
+
+    xl = family_bundle(torch, "sdxl", seed=2)
+    pipe = StableDiffusionWalkPipeline(xl, dev)  # pndm-50, batch 1
+    out["sdxl_walk"], walk_s = counted_run(
+        torch, "families SDXL walk", lambda: walk_clip(
+            pipe, "chip_smoke_sdxl", 50, batch_size=None, frames=2,
+            side=1024))
+    check_pngs(WORK / "chip_smoke_sdxl", 2, side=1024)
+    print(f"families: SDXL-base walk of 2 frames at 1024² {walk_s:.3f} s "
+          f"(first dispatch included) on {line}")
+    eng = pipe.engine
+    xl_in = dict(cond=eng.embed_text(prompt), uncond=eng.embed_text(""),
+                 noise=torch.randn(1, 128, 128, 4, generator=torch.Generator()
+                                   .manual_seed(3)),
+                 pooled=eng.embed_text_pooled(prompt),
+                 uncond_pooled=eng.embed_text_pooled(""),
+                 num_inference_steps=50, guidance_scale=7.5)
+    warm, times = warm_seconds(torch, lambda: eng.denoise_frames(
+        output_dtype="uint8", **xl_in), runs=2)
+    print(f"families: SDXL-base warm dispatch of 1 frame at 1024², pndm-50 "
+          f"CFG 7.5: {warm:.4f} s (min of {times}) on {line}")
+    fast = StableDiffusionWalkPipeline(xl, dev, fast=True)
+    out["sdxl_fast"], fast_s = counted_run(
+        torch, "families SDXL fast dispatch", lambda: check_frames(
+            "families: SDXL fast dispatch", fast.engine.denoise_frames(
+                output_dtype="float32", **xl_in), shape=(1, 1024, 1024, 3)))
+    print(f"families: SDXL-base fast (pndm-50 x step_cache=2) dispatch of 1 "
+          f"frame {fast_s:.4f} s (first call) on {line}")
+    del pipe, fast, eng, xl, xl_in
+    torch.cuda.empty_cache()
+
+    sd2 = family_bundle(torch, "sd2", seed=3)
+    pipe = StableDiffusionWalkPipeline(sd2, dev, scheduler="ddim",
+                                       batch_bucket=8)
+    out["sd2_walk"], walk_s = counted_run(
+        torch, "families SD 2.x walk", lambda: walk_clip(
+            pipe, "chip_smoke_sd2", 50, batch_size=8, frames=4, side=768))
+    check_pngs(WORK / "chip_smoke_sd2", 4, side=768)
+    print(f"families: SD 2.1 768-v walk of 4 frames at 768² (one dispatch "
+          f"padded to 8) {walk_s:.3f} s (first dispatch included) on {line}")
+    cond = pipe.embed_text(prompt).expand(8, -1, -1)
+    noise = torch.randn(8, 96, 96, 4, generator=torch.Generator()
+                        .manual_seed(3))
+    uncond = pipe.embed_text("")
+    frames = {}
+    out["sd2_dispatch"], first = counted_run(
+        torch, "families SD 2.x dispatch", lambda: frames.update(
+            x=pipe.engine.denoise_frames(
+                cond, uncond, noise, num_inference_steps=50,
+                guidance_scale=7.5, output_dtype="float32")))
+    check_frames("families: SD 2.x dispatch", frames["x"],
+                 shape=(8, 768, 768, 3))
+    print(f"families: SD 2.x dispatch of 8 frames {first:.4f} s (first "
+          f"call at this batch) on {line}")
+    warm, times = warm_seconds(torch, lambda: pipe.engine.denoise_frames(
+        cond, uncond, noise, num_inference_steps=50, guidance_scale=7.5,
+        output_dtype="uint8"), runs=2)
+    print(f"families: SD 2.1 768-v warm dispatch of 8 frames at 768², "
+          f"ddim-50 v-prediction CFG 7.5: {warm:.4f} s (min of {times}), "
+          f"{8 / warm:.4f} frames/s, on {line}")
+    del pipe, sd2
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -733,7 +931,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep, distilled = None, None, None, None
+    summary, launches, fewstep, distilled, families = (None,) * 5
     models = (sd1_bundle(torch)
               if {"main", "fewstep", "distilled"} & set(phases) else None)
     for name in PHASES[1:]:
@@ -750,8 +948,10 @@ def main():
             launches = phase_main(torch, models)
         elif name == "fewstep":
             fewstep = phase_fewstep(torch, models)
-        else:
+        elif name == "distilled":
             distilled = phase_distilled(torch, models)
+        else:
+            families = phase_families(torch)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -775,6 +975,8 @@ def main():
                                  for run, counts in fewstep.items()}
         k["launches_distilled"] = {run: counts[wrapper[k["name"]]]
                                    for run, counts in distilled.items()}
+        k["launches_families"] = {run: counts[wrapper[k["name"]]]
+                                  for run, counts in families.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

@@ -7,6 +7,11 @@ whose second entry is duplicated (the PLMS warm-up re-evaluation), and a
 ``(L, 5)`` weight table combines ``[eps_new, e0, e1, e2, e3]`` per index
 (1 / mean-of-2 / AB2 / AB3 / AB4 rows).  The step keeps a ring of the last
 four model outputs and the stored warm-up sample.
+
+The linear multistep combines noise predictions, so the sampler serves an
+epsilon-predicting model only: ``make_tables`` refuses any other
+``prediction_type`` (the JAX package's PNDM reads a v-prediction output as
+epsilon and gives wrong frames without an error).
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ class PNDM(Scheduler):
     name = "pndm"
 
     def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int):
+        if cfg.prediction_type != "epsilon":
+            raise ValueError(
+                f"pndm combines epsilon predictions and cannot serve "
+                f"prediction_type={cfg.prediction_type!r}; the samplers that "
+                "read it are ddim, dpm, euler, euler_ancestral, lms, unipc "
+                "and lcm")
         if not cfg.skip_prk_steps:
             raise NotImplementedError(
                 "only skip_prk_steps=True (PLMS, the SD checkpoint config)")

@@ -31,9 +31,12 @@
 // Head sizes: TMA loads every operand in 16-column slabs (32 bytes a row,
 // 32-byte swizzle), one wgmma k step each, and zero-fills columns at and
 // past D.  So the depth is the least instantiated multiple of 16 that holds
-// D (48, 80, 160, 512), never 128 (a TPU lane artefact): D=80 and 160 waste
-// nothing; D=40 runs 48, a sixth of its q·kᵀ and p·v work on zeros.  Other
-// head sizes up to 512 run at the next depth.  Sk=77 (every
+// D (48, 64, 80, 160, 512), never 128 (a TPU lane artefact): D=64 (every
+// head of SD 2.x and SDXL), 80 and 160 waste nothing; D=40 runs 48, a sixth
+// of its q·kᵀ and p·v work on zeros.  Other head sizes up to 512 run at the
+// next depth.  At D=64 a row is 128 bytes, so one 128-byte swizzled box
+// could carry it whole; the four slabs keep the one layout every depth
+// shares (the depth-64 tile is the depth-80 tile less one slab).  Sk=77 (every
 // cross-attention): keys past Sk in the last tile are zero-filled by TMA
 // and masked to -inf here (zero logits are not -inf).  Rows past Sq are
 // zero-filled on load and not stored.  D=512 (the VAE mid-block, one
@@ -631,9 +634,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
 }
 
 // the head size rounded up to an instantiated depth (SD 1.x's heads are 40,
-// 80, 160 and 512); 0 if above 512
+// 80, 160 and 512; SD 2.x's and SDXL's 64, and 512 in the VAE); 0 if above
+// 512
 int padded_depth(int D) {
-  for (int dp : {48, 80, 160, 512})
+  for (int dp : {48, 64, 80, 160, 512})
     if (D <= dp) return dp;
   return 0;
 }
@@ -647,9 +651,12 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
     return launch_wgmma<FlashCfg<DP, BQ, BN, NSTAGE, NDWG>>(              \
         q, k, v, o, B, Sq, Sk, H, D, scale_log2, stream);
     // three consumers where their registers allow it (measured faster than
-    // two), two at D=160 (the accumulators need 240 registers a thread)
-    SDV_FA(48, 192, 128, 2, 1) SDV_FA(80, 192, 128, 2, 1)
-    SDV_FA(160, 128, 128, 2, 1) SDV_FA(512, 64, 64, 1, 2)
+    // two), two at D=160 (the accumulators need 240 registers a thread).
+    // D=64: 64 score, 32 output and 32 p registers a thread fit the three
+    // consumers' 160, and q (24 KB) with two k/v stages (64 KB) leaves room
+    SDV_FA(48, 192, 128, 2, 1) SDV_FA(64, 192, 128, 2, 1)
+    SDV_FA(80, 192, 128, 2, 1) SDV_FA(160, 128, 128, 2, 1)
+    SDV_FA(512, 64, 64, 1, 2)
 #undef SDV_FA
   }
   return (int)cudaErrorInvalidValue;
@@ -673,6 +680,12 @@ extern "C" int sdv_flash_attention(const void* q, const void* k,
   if (dtype == sdv::kBFloat16 && D % 8 == 0)
     return dispatch_wgmma(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The depth a bf16 call of head size D runs at (0: not served), so a caller
+// can show which instantiation serves a shape.
+extern "C" int sdv_flash_attention_depth(int D) {
+  return D % 8 == 0 ? padded_depth(D) : 0;
 }
 
 // Host microseconds a bf16 call spends encoding its three tensor maps

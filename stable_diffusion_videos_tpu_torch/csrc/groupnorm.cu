@@ -34,15 +34,18 @@
 // A group stays on chip when its bytes (in x's dtype: an fp32 group is
 // twice a bf16 one) are at most 1 MB: every UNet level and the VAE up to
 // 256² with 256 channels, in clusters of up to 16 blocks (the non-portable
-// size Hopper allows; 8 is the portable limit).  The three largest VAE
-// groups (2 to 4 MB) are streamed: clusters of 16 blocks of 512 threads,
-// each keeping the first 96 KB of its slice on chip and reading the rest
-// twice.  The launch holds no more clusters than keep their streamed bytes
-// within 32 MB of the 50 MB L2 (fewer still fit on the card at once), so
-// the second read can come from L2; each cluster loops over groups.  The
-// path is chosen by size before the launch, never on failure.  A run whose
-// rows are not 16-byte aligned moves element by element, kept whole on
-// chip or streamed by the same rule.
+// size Hopper allows; 8 is the portable limit).  Larger groups (the VAE
+// decoder's 2 MB at 512² to 16.8 MB at 1024²) are streamed: clusters of 16
+// blocks of 512 threads, each keeping the first 96 KB of its slice on chip
+// and reading the rest twice.  The launch holds as many clusters as fit on
+// the card at once, and each loops over groups.  The second read is left
+// to fall out of L2 where it will: holding fewer clusters so that their
+// streamed bytes fit L2 leaves too few SMs moving the tensor (measured on
+// the card: no faster on 2-4 MB groups, 1.2-2.6x slower on 4.7-16.8 MB
+// ones with two to four clusters in flight).  The path is chosen by size
+// before the launch, never on failure.  A run whose rows are not 16-byte
+// aligned moves element by element, kept whole on chip or streamed by the
+// same rule.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -68,7 +71,6 @@ constexpr long long ONCHIP_MAX = 1 << 20;      // largest on-chip group
 constexpr int MAX_CLUSTER = 16;                // most blocks a cluster
 constexpr int STREAM_NT = 512;                 // threads a block, streamed
 constexpr long long STREAM_KEEP = 96 << 10;    // kept bytes of a streamed slice
-constexpr long long L2_BUDGET = 32 << 20;      // streamed bytes in flight
 constexpr unsigned CHUNK = 8 << 10;            // bytes of one bulk copy
 constexpr int MAX_CHUNKS = STREAM_KEEP / CHUNK;  // one mbarrier each
 constexpr int MAX_CPG = 512;                   // channels a group
@@ -357,7 +359,6 @@ int launch(const void* x, const void* scale, const void* bias, int w_bf16,
   const int NG = N * G;
   const int cpg = C / G;
   const long long HW = M / cpg;
-  const long long group_bytes = M * (long long)sizeof(T);
   const size_t smem = (size_t)coef_bytes(cpg) + (size_t)keep * sizeof(T);
   auto kernel = gn_silu_kernel<T, VEC, NT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -380,11 +381,8 @@ int launch(const void* x, const void* scale, const void* bias, int w_bf16,
   cfg.numAttrs = 1;
   long long clusters = NG;
   if (keep < slice) {
-    // clusters in flight: their streamed bytes within the L2 budget, and no
-    // more than fit on the card at once
-    const long long streamed = std::max<long long>(
-        16, group_bytes - cs * keep * (long long)sizeof(T));
-    clusters = std::min<long long>(NG, std::max(1LL, L2_BUDGET / streamed));
+    // streamed: as many clusters as fit on the card at once, each looping
+    // over groups
     cfg.gridDim = dim3((unsigned)(clusters * cs));
     int resident = 0;
     err = cudaOccupancyMaxActiveClusters(&resident, kernel, &cfg);

@@ -6,7 +6,10 @@ built on the meta device and materialised by ``weights.load_state_dict``, so
 a full-size bundle never holds a second, default-initialised copy of its
 weights.  The repository holds no checkpoint, so both constructors draw
 random weights from a numpy seed.  A bundle may carry the TAESD tiny decoder
-beside the KL decoder (``with_taesd``).
+beside the KL decoder (``with_taesd``).  Families: SD 1.x, SD 2.x (OpenCLIP-H,
+64-channel heads; the 768-v point predicts v) and SDXL-base (a second text
+tower, OpenCLIP-bigG, whose projected pooled output feeds the UNet's
+text_time conditioning; ``is_xl``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,18 @@ class SDModels:
         default_factory=SchedulerConfig)
     #: the TAESD tiny decoder (``Engine(tiny_decoder=True)``), if attached
     taesd: Optional[AutoencoderTiny] = None
+    #: SDXL's second text tower (OpenCLIP-bigG): the two towers' hidden
+    #: states concatenate to the UNet's context width, and its projected
+    #: pooled output feeds text_time
+    text_config_2: Optional[CLIPTextConfig] = None
+    text_encoder_2: Optional[CLIPTextEncoder] = None
+    #: tower 2's tokenizer (OpenCLIP pads with 0, not with EOS)
+    tokenizer_2: Optional[BaseTokenizer] = None
+
+    @property
+    def is_xl(self) -> bool:
+        """SDXL family: two text towers and text_time conditioning."""
+        return self.unet_config.addition_embed_dim is not None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -54,14 +69,16 @@ class SDModels:
 
     @property
     def default_batch_size(self) -> int:
-        """The walk's default dispatch batch: 8, the JAX package's default
-        for the 512²-native families, kept for parity.  It is not a
-        measurement on the card."""
-        return 8
+        """The walk's default dispatch batch, the JAX package's per family,
+        kept for parity: 8 for the 512²- and 768²-native families, 1 at a
+        default size of 1024² or more (SDXL).  It is not a measurement on
+        the card."""
+        return 1 if self.default_size >= 1024 else 8
 
     def to(self, device: torch.device) -> "SDModels":
         """Move the modules to ``device`` (in place) and return the bundle."""
-        for m in (self.unet, self.vae, self.text_encoder, self.taesd):
+        for m in (self.unet, self.vae, self.text_encoder, self.text_encoder_2,
+                  self.taesd):
             if m is not None:
                 m.to(device)
         return self
@@ -91,24 +108,43 @@ class SDModels:
     @classmethod
     def build(cls, unet_config, vae_config, text_config, seed: int,
               std: float, dtype: torch.dtype,
-              taesd_config: Optional[TAESDConfig] = None) -> "SDModels":
+              taesd_config: Optional[TAESDConfig] = None,
+              text_config_2: Optional[CLIPTextConfig] = None,
+              scheduler_config: Optional[SchedulerConfig] = None
+              ) -> "SDModels":
         """Modules of the given geometry with every weight drawn N(0, std)
         from numpy seeds ``seed``, ``seed + 1``, ``seed + 2`` (and the
-        TAESD decoder's, if a config is given, from ``seed + 3``)."""
-        with torch.device("meta"):
-            mods = (UNet2DCondition(unet_config), AutoencoderKL(vae_config),
-                    CLIPTextEncoder(text_config))
-        for i, m in enumerate(mods):
-            load_state_dict(m, random_state_dict(m, seed + i, std), dtype)
-            m.eval().requires_grad_(False)
-        models = cls(unet_config, vae_config, text_config, *mods,
-                     HashTokenizer(vocab_size=text_config.vocab_size))
+        TAESD decoder's, if a config is given, from ``seed + 3``; the second
+        text tower's, if one is given, from ``seed + 4``), each cast to
+        ``dtype`` as it is drawn."""
+        configs = [unet_config, vae_config, text_config]
+        builders = [UNet2DCondition, AutoencoderKL, CLIPTextEncoder]
+        seeds = [seed, seed + 1, seed + 2]
+        if text_config_2 is not None:
+            configs.append(text_config_2)
+            builders.append(CLIPTextEncoder)
+            seeds.append(seed + 4)
+        mods = []
+        for build, cfg, s in zip(builders, configs, seeds):
+            with torch.device("meta"):
+                m = build(cfg)
+            load_state_dict(m, random_state_dict(m, s, std, dtype), dtype)
+            mods.append(m.eval().requires_grad_(False))
+        vocab = text_config.vocab_size
+        models = cls(unet_config, vae_config, text_config, *mods[:3],
+                     HashTokenizer(vocab_size=vocab),
+                     scheduler_config or SchedulerConfig())
+        if text_config_2 is not None:
+            models = dataclasses.replace(
+                models, text_config_2=text_config_2, text_encoder_2=mods[3],
+                tokenizer_2=HashTokenizer(
+                    vocab_size=text_config_2.vocab_size, pad_token_id=0))
         if taesd_config is None:
             return models
         with torch.device("meta"):
             shapes = AutoencoderTiny(taesd_config)
-        return models.with_taesd(taesd_config,
-                                 random_state_dict(shapes, seed + 3, std))
+        return models.with_taesd(
+            taesd_config, random_state_dict(shapes, seed + 3, std, dtype))
 
     @classmethod
     def tiny(cls, seed: int = 0, taesd: bool = False) -> "SDModels":
@@ -119,17 +155,41 @@ class SDModels:
                          TAESDConfig.tiny() if taesd else None)
 
     @classmethod
+    def tiny_xl(cls, seed: int = 0) -> "SDModels":
+        """Tiny fp32 SDXL-shaped bundle (the JAX package's
+        ``SDModels.tiny_xl`` geometry): two 16-wide towers making the
+        32-wide context, per-level depth (0, 2) and text_time; tower 2's
+        tokenizer pads with 0."""
+        return cls.build(UNetConfig.tiny_xl(), VAEConfig.tiny(),
+                         CLIPTextConfig.tiny_xl_l(), seed, 0.1, torch.float32,
+                         text_config_2=CLIPTextConfig.tiny_xl_g())
+
+    @classmethod
     def random(cls, family: str = "sd1", seed: int = 1,
                dtype: torch.dtype = torch.bfloat16,
                taesd: bool = False) -> "SDModels":
-        """The real SD 1.x geometry (CLIP-L text tower, the 860M UNet, the
-        KL decoder) with weights drawn N(0, 0.02); with ``taesd`` the TAESD
-        decoder at its published geometry too.  The 0.02 is load-bearing
-        in bf16: unit-scale weights overflow the UNet's residual sums within
-        a few blocks."""
-        if family != "sd1":
-            raise ValueError(f"unknown model family {family!r}; the port "
-                             "has 'sd1'")
-        return cls.build(UNetConfig.sd_v1(), VAEConfig.sd_v1(),
-                         CLIPTextConfig.sd_v1(), seed, 0.02, dtype,
-                         TAESDConfig.sd() if taesd else None)
+        """A family's published geometry with weights drawn N(0, 0.02):
+        "sd1" (CLIP-L, the 860M UNet, the KL decoder), "sd2" (SD 2.1 768-v:
+        OpenCLIP-H, the UNet at 96² latents, SD 1.x's VAE, a v-prediction
+        scheduler config) or "sdxl" (SDXL-base 1.0: CLIP-L and
+        OpenCLIP-bigG, the 2.6B UNet at 128² latents, the SDXL VAE); with
+        ``taesd`` the TAESD decoder at its published geometry too.  The
+        0.02 is load-bearing in bf16: unit-scale weights overflow the UNet's
+        residual sums within a few blocks."""
+        taesd_config = TAESDConfig.sd() if taesd else None
+        if family == "sd1":
+            return cls.build(UNetConfig.sd_v1(), VAEConfig.sd_v1(),
+                             CLIPTextConfig.sd_v1(), seed, 0.02, dtype,
+                             taesd_config)
+        if family == "sd2":
+            return cls.build(UNetConfig.sd_v2(96), VAEConfig.sd_v1(),
+                             CLIPTextConfig.sd_v2(), seed, 0.02, dtype,
+                             taesd_config, scheduler_config=SchedulerConfig(
+                                 prediction_type="v_prediction"))
+        if family == "sdxl":
+            return cls.build(UNetConfig.sd_xl(), VAEConfig.sd_xl(),
+                             CLIPTextConfig.sd_xl_l(), seed, 0.02, dtype,
+                             taesd_config,
+                             text_config_2=CLIPTextConfig.sd_xl_g())
+        raise ValueError(f"unknown model family {family!r}; the port has "
+                         "'sd1', 'sd2' and 'sdxl'")

@@ -14,7 +14,9 @@ array (BOS ... EOS pad...).  Three implementations behind one interface:
 All return int32 numpy arrays of shape (B, model_max_length).
 
 A copy of ``stable_diffusion_videos_tpu/models/tokenizer.py``: that module is
-numpy-only, but importing it through its package loads flax.
+numpy-only, but importing it through its package loads flax.  Here
+``HashTokenizer`` also takes ``pad_token_id``, so a bundle's second tower
+can pad with 0 as SDXL's OpenCLIP tokenizer does.
 """
 
 from __future__ import annotations
@@ -202,11 +204,13 @@ class HashTokenizer(BaseTokenizer):
     """Deterministic word-hash tokenizer for weightless tests — any prompt
     maps to a stable id sequence inside a small vocab."""
 
-    def __init__(self, vocab_size: int = 1000, model_max_length: int = 77):
+    def __init__(self, vocab_size: int = 1000, model_max_length: int = 77,
+                 pad_token_id: int | None = None):
         self.vocab_size = vocab_size
         self.model_max_length = model_max_length
         self.bos_token_id = vocab_size - 2
         self.eos_token_id = vocab_size - 1
+        self.pad_token_id = pad_token_id
 
     def encode(self, text: str) -> list[int]:
         import hashlib

@@ -1,19 +1,21 @@
-"""UNet2DCondition — the SD 1.x noise predictor, PyTorch NCHW.
+"""UNet2DCondition — the noise predictor of SD 1.x, SD 2.x and SDXL-base,
+PyTorch NCHW.
 
-Counterpart of ``stable_diffusion_videos_tpu/models/unet.py`` on the SD 1.x
-path: conv_in, sinusoidal+MLP time embedding, cross-attention down blocks
-and a plain deepest block, a cross-attention mid block, the mirrored up path
-with skip concatenation, then GN+SiLU+conv_out, and DeepCache's split into
-a deep trunk and a shallow pass.  Module names follow diffusers
-(``down_blocks.0.resnets.0...``).  ControlNet, IP-Adapter and SDXL
-conditioning are not ported: passing their inputs raises
-``NotImplementedError``.
+Counterpart of ``stable_diffusion_videos_tpu/models/unet.py``: conv_in,
+sinusoidal+MLP time embedding (plus SDXL's "text_time" addition embedding:
+the pooled text embedding and the sinusoidal embeddings of the size/crop
+ids through ``add_embedding``), cross-attention down blocks with a per-level
+transformer depth, a cross-attention mid block at the deepest depth, the
+mirrored up path with skip concatenation, then GN+SiLU+conv_out, and
+DeepCache's split into a deep trunk and a shallow pass.  Module names follow
+diffusers (``down_blocks.0.resnets.0...``).  ControlNet and IP-Adapter are
+not ported: passing their inputs raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -39,6 +41,15 @@ class UNetConfig:
     transformer_depth: Union[int, Tuple[int, ...]] = 1
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    #: SDXL "text_time": the sinusoidal width of each size/crop id (None:
+    #: no addition embedding, as SD 1.x and 2.x)
+    addition_embed_dim: Optional[int] = None
+    #: width of the pooled text embedding concatenated before the addition
+    #: MLP (SDXL: 1280, the OpenCLIP-bigG tower's projection)
+    addition_pooled_dim: Optional[int] = None
+    #: number of size/crop ids: 6 for SDXL-base (orig_h, orig_w, crop_t,
+    #: crop_l, target_h, target_w)
+    addition_num_ids: int = 6
 
     def heads(self, level: int) -> int:
         h = self.attention_head_dim
@@ -54,11 +65,42 @@ class UNetConfig:
         return cls()
 
     @classmethod
+    def sd_v2(cls, sample_size: int = 64):
+        """SD v2.x geometry: OpenCLIP-H context (1024) and 64-channel heads
+        at every level; ``sample_size=96`` for the 768-v checkpoints (their
+        v-prediction is the scheduler config's)."""
+        return cls(sample_size=sample_size, cross_attention_dim=1024,
+                   attention_head_dim=(5, 10, 20, 20))
+
+    @classmethod
+    def sd_xl(cls):
+        """SDXL-base 1.0 geometry: 3 levels, no attention at level 0,
+        transformer depths (0, 2, 10), 64-channel heads, the dual-tower
+        context (768 + 1280 = 2048), and text_time: 6 ids embedded at 256
+        each beside the 1280-wide pooled embedding (2816 into the MLP)."""
+        return cls(sample_size=128, block_out_channels=(320, 640, 1280),
+                   cross_attention_dim=2048,
+                   attention_head_dim=(5, 10, 20),
+                   attn_levels=(False, True, True),
+                   transformer_depth=(0, 2, 10),
+                   addition_embed_dim=256, addition_pooled_dim=1280)
+
+    @classmethod
     def tiny(cls):
         """CPU-runnable config for tests; same code paths."""
         return cls(sample_size=8, block_out_channels=(32, 64),
                    layers_per_block=1, cross_attention_dim=32,
                    attention_head_dim=2, attn_levels=(True, False))
+
+    @classmethod
+    def tiny_xl(cls):
+        """CPU-runnable SDXL-shaped config: per-level transformer depth and
+        the text_time addition embedding."""
+        return cls(sample_size=8, block_out_channels=(32, 64),
+                   layers_per_block=1, cross_attention_dim=32,
+                   attention_head_dim=2, attn_levels=(False, True),
+                   transformer_depth=(0, 2),
+                   addition_embed_dim=8, addition_pooled_dim=16)
 
 
 class UNetBlock(nn.Module):
@@ -92,6 +134,10 @@ class UNet2DCondition(nn.Module):
         ctx_dim = cfg.cross_attention_dim
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedMLP(chans[0], temb_dim)
+        if cfg.addition_embed_dim is not None:
+            self.add_embedding = TimestepEmbedMLP(
+                cfg.addition_pooled_dim
+                + cfg.addition_num_ids * cfg.addition_embed_dim, temb_dim)
 
         skip_chans = [chans[0]]
         ch = chans[0]
@@ -145,6 +191,11 @@ class UNet2DCondition(nn.Module):
         encoder_hidden_states: (B, S, cross_attention_dim).  Returns the
         fp32 noise prediction (B, C, H, W).
 
+        SDXL text_time (a config with ``addition_embed_dim``): ``text_embeds``
+        is the (B, addition_pooled_dim) pooled text embedding and
+        ``time_ids`` the (B, addition_num_ids) size/crop ids; both are
+        required there and refused elsewhere.
+
         DeepCache (Ma et al. 2023): with ``cache_split`` the call returns
         ``(eps, deep)``, where ``deep`` is the deep trunk's output entering
         level ``cache_split - 1`` (after ``up_{cache_split}``'s upsample).
@@ -153,8 +204,7 @@ class UNet2DCondition(nn.Module):
         mid block skipped, the given feature spliced in where the trunk's
         output would be, and that same feature returned."""
         unported = dict(ctrl_down=ctrl_down, ctrl_mid=ctrl_mid,
-                        ip_context=ip_context, text_embeds=text_embeds,
-                        time_ids=time_ids)
+                        ip_context=ip_context)
         for name, value in unported.items():
             if value is not None:
                 raise NotImplementedError(
@@ -171,6 +221,19 @@ class UNet2DCondition(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift)
         temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_dim is not None:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("this UNet config requires text_embeds and "
+                                 "time_ids (SDXL text_time conditioning)")
+            ids_emb = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift).reshape(
+                    sample.shape[0], -1)
+            add = torch.cat([text_embeds.float(), ids_emb], dim=-1)
+            temb = temb + self.add_embedding(add.to(dtype))
+        elif text_embeds is not None or time_ids is not None:
+            raise ValueError("text_embeds/time_ids given to a UNet without "
+                             "text_time conditioning (addition_embed_dim)")
         ctx = encoder_hidden_states.to(dtype)
 
         x = self.conv_in(sample.to(dtype))

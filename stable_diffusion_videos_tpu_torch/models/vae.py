@@ -18,6 +18,7 @@ from .layers import GroupNorm32, ResnetBlock2D, Upsample2D, VAEAttnBlock
 from .unet import UNetBlock
 
 SD_LATENT_SCALE = 0.18215
+SDXL_LATENT_SCALE = 0.13025
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +38,11 @@ class VAEConfig:
     @classmethod
     def sd_v1(cls):
         return cls()
+
+    @classmethod
+    def sd_xl(cls):
+        """SDXL's VAE (sdxl-vae): SD 1.x's geometry, its own latent scale."""
+        return cls(scaling_factor=SDXL_LATENT_SCALE)
 
     @classmethod
     def tiny(cls):

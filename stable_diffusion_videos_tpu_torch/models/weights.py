@@ -7,13 +7,18 @@
   ``export_vae``, ``export_text_encoder``), written with numpy alone because
   that module imports jax: conv HWIO -> OIHW, dense (in, out) -> (out, in),
   norm scale -> weight, ``to_out`` -> ``to_out.0``, ``ff.proj_in`` ->
-  ``ff.net.0.proj``.  The TAESD decoder's tree maps to diffusers
-  ``AutoencoderTiny`` names (``decoder.layers.N``, conv_in at 0).
+  ``ff.net.0.proj``.  SDXL's ``add_embedding`` and the projected tower's
+  ``text_projection`` map by the same rules.  The TAESD decoder's tree maps
+  to diffusers ``AutoencoderTiny`` names (``decoder.layers.N``, conv_in
+  at 0).
 * ``load_state_dict(module, state_dict)`` loads diffusers-named numpy arrays,
   strict about missing and unexpected keys within the module (keys of parts
-  the slice does not port, ``SKIPPED_PREFIXES``, are dropped).
-* ``random_state_dict(module, seed, std)`` draws every parameter N(0, std)
-  from a numpy seed.
+  the slice does not port, ``SKIPPED_PREFIXES``, are dropped).  A
+  transformer's ``proj_in``/``proj_out`` loads from either layout diffusers
+  writes: the 1×1 convolution's ``(C, C, 1, 1)`` (SD 1.x) or the Linear's
+  ``(C, C)`` (SD 2.x and SDXL, ``use_linear_projection``).
+* ``random_state_dict(module, seed, std, dtype)`` draws every parameter
+  N(0, std) from a numpy seed, one tensor at a time.
 """
 
 from __future__ import annotations
@@ -82,8 +87,10 @@ def _transformer(p, pfx, depth, out):
 
 def _unet(p, config: UNetConfig, out):
     _conv(p["conv_in"], "conv_in", out)
-    _lin(p["time_embedding"]["linear_1"], "time_embedding.linear_1", out)
-    _lin(p["time_embedding"]["linear_2"], "time_embedding.linear_2", out)
+    for mlp in ("time_embedding", "add_embedding"):
+        if mlp in p:  # add_embedding: SDXL text_time
+            _lin(p[mlp]["linear_1"], f"{mlp}.linear_1", out)
+            _lin(p[mlp]["linear_2"], f"{mlp}.linear_2", out)
     _gn32(p["conv_norm_out"], "conv_norm_out", out)
     _conv(p["conv_out"], "conv_out", out)
     n = len(config.block_out_channels)
@@ -167,6 +174,8 @@ def _text(p, config: CLIPTextConfig, out):
         _norm(blk["layer_norm2"], f"{b}.layer_norm2", out)
         _lin(blk["fc1"], f"{b}.mlp.fc1", out)
         _lin(blk["fc2"], f"{b}.mlp.fc2", out)
+    if "text_projection" in p:
+        _lin(p["text_projection"], "text_projection", out)
 
 
 def _taesd_block(p, pfx, out):
@@ -202,6 +211,11 @@ def from_jax_params(tree: dict, config) -> dict[str, np.ndarray]:
     return out
 
 
+#: the transformers' channel projections, stored by diffusers as 1x1
+#: convolutions (SD 1.x) or as Linear layers (SD 2.x and SDXL)
+_LINEAR_PROJECTIONS = (".proj_in.weight", ".proj_out.weight")
+
+
 def load_state_dict(module: nn.Module, state_dict: dict,
                     dtype: torch.dtype | None = None) -> nn.Module:
     """Fill ``module`` from diffusers-named arrays (numpy or torch), in
@@ -220,6 +234,9 @@ def load_state_dict(module: nn.Module, state_dict: dict,
     for k, ref in own.items():
         t = sd[k] if torch.is_tensor(sd[k]) else torch.from_numpy(
             np.array(sd[k]))  # a copy: jax arrays are read-only
+        if (k.endswith(_LINEAR_PROJECTIONS) and t.ndim == 2
+                and tuple(ref.shape) == tuple(t.shape) + (1, 1)):
+            t = t[:, :, None, None]  # a Linear over channels is a 1x1 conv
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{k}: shape {tuple(t.shape)}, the module has "
                              f"{tuple(ref.shape)}")
@@ -228,11 +245,17 @@ def load_state_dict(module: nn.Module, state_dict: dict,
     return module
 
 
-def random_state_dict(module: nn.Module, seed: int,
-                      std: float) -> dict[str, np.ndarray]:
+def random_state_dict(module: nn.Module, seed: int, std: float,
+                      dtype: torch.dtype | None = None) -> dict:
     """Every parameter of ``module`` drawn N(0, std) in float32 from one
     numpy generator, in state-dict order (shapes only are read, so a
-    meta-device module serves)."""
+    meta-device module serves).  With ``dtype`` each draw is cast to a
+    torch tensor of that dtype as soon as it is drawn, so no more than one
+    float32 tensor is held at a time (SDXL's UNet is about 10 GB in
+    float32); the values are those of the float32 draws, cast."""
     rng = np.random.default_rng(seed)
-    return {k: rng.standard_normal(tuple(v.shape), dtype=np.float32) * std
-            for k, v in module.state_dict().items()}
+    out = {}
+    for k, v in module.state_dict().items():
+        w = rng.standard_normal(tuple(v.shape), dtype=np.float32) * std
+        out[k] = w if dtype is None else torch.from_numpy(w).to(dtype)
+    return out

@@ -8,6 +8,10 @@ noise, ``negative_prompt``, audio-timed frames (``audio/analysis.py``),
 streamed video assembly (``media/video.py``), and a drain that saves batch N after batch
 N+1 has been enqueued on the device.
 
+The walk serves SD 1.x, SD 2.x and SDXL-base bundles: for SDXL the pooled
+text embedding walks the same lerp trajectory as the sequence embedding,
+and the negative prompt's pooled embedding is the uncond one.
+
 The few-step levers are ported: DeepCache step caching, limited-interval
 CFG and the ``fast`` preset that combines them, every sampler of the JAX
 package, and frozen transition noise.  Each dispatch of a stochastic
@@ -71,11 +75,12 @@ class StableDiffusionWalkPipeline:
         refuse_unported("StableDiffusionWalkPipeline", _PIPELINE_UNPORTED,
                         unported)
         if fast:
-            # the JAX package's SD 1.x preset: step_cache=3 x
-            # guidance_interval (0.1, 0.85); explicit kwargs win
+            # the JAX package's presets, explicit kwargs win: SD 1.x/2.x
+            # step_cache=3 x guidance_interval (0.1, 0.85); SDXL
+            # step_cache=2 alone
             if step_cache is None:
-                step_cache = 3
-            if guidance_interval is None:
+                step_cache = 2 if models.is_xl else 3
+            if guidance_interval is None and not models.is_xl:
                 guidance_interval = (0.1, 0.85)
         self.fast = bool(fast)
         self.models = models
@@ -94,6 +99,13 @@ class StableDiffusionWalkPipeline:
              **kw) -> "StableDiffusionWalkPipeline":
         """Random tiny-model pipeline: every code path, no weights."""
         return cls(SDModels.tiny(seed), device, **kw)
+
+    @classmethod
+    def tiny_xl(cls, device: torch.device, seed: int = 0,
+                **kw) -> "StableDiffusionWalkPipeline":
+        """Random tiny SDXL-shaped pipeline: two text towers and text_time
+        conditioning, no weights."""
+        return cls(SDModels.tiny_xl(seed), device, **kw)
 
     # ------------------------------------------------------------------
     # building blocks
@@ -116,8 +128,10 @@ class StableDiffusionWalkPipeline:
 
     def generate_inputs(self, prompt_a: str, prompt_b: str, seed_a, seed_b,
                         noise_shape, T, batch_size: int):
-        """Interpolated (embeds, noise) batches for one clip: the whole
-        trajectory is built at once, then cut into dispatch batches."""
+        """Interpolated (embeds, noise, pooled) batches for one clip: the
+        whole trajectory is built at once, then cut into dispatch batches.
+        ``pooled`` is None but for SDXL, whose pooled embedding walks the
+        same lerp trajectory."""
         embeds_a = self.engine.embed_text(prompt_a)
         embeds_b = self.engine.embed_text(prompt_b)
         noise_a = self.init_noise(seed_a, noise_shape)
@@ -125,8 +139,13 @@ class StableDiffusionWalkPipeline:
         T = np.asarray(T, np.float32)
         embeds = lerp(T, embeds_a[0], embeds_b[0])
         noise = slerp(T, noise_a[0], noise_b[0])
+        pooled = None
+        if self.models.is_xl:
+            pooled = lerp(T, self.engine.embed_text_pooled(prompt_a)[0],
+                          self.engine.embed_text_pooled(prompt_b)[0])
         for i in range(0, len(T), batch_size):
-            yield embeds[i:i + batch_size], noise[i:i + batch_size]
+            yield (embeds[i:i + batch_size], noise[i:i + batch_size],
+                   None if pooled is None else pooled[i:i + batch_size])
 
     # ------------------------------------------------------------------
     # frame generation
@@ -166,6 +185,8 @@ class StableDiffusionWalkPipeline:
                 f"({num_interpolation_steps})")
         T = T[skip:]
         uncond = self.engine.embed_text(negative_prompt or "")
+        uncond_pooled = (self.engine.embed_text_pooled(negative_prompt or "")
+                         if self.models.is_xl else None)
         batches = self.generate_inputs(prompt_a, prompt_b, seed_a, seed_b,
                                        self._latent_shape(height, width), T,
                                        batch_size)
@@ -185,7 +206,7 @@ class StableDiffusionWalkPipeline:
         pending = None  # (frames on the device, valid, first frame index)
         with ThreadPoolExecutor(max_workers=4,
                                 thread_name_prefix="frame-save") as pool:
-            for batch_idx, (embeds, noise) in enumerate(batches):
+            for batch_idx, (embeds, noise, pooled) in enumerate(batches):
                 logger.info("%s[%d] generating frames %d-%d / %d",
                             f"[{step[0]}/{step[1]}]" if step else "",
                             batch_idx, frame_index,
@@ -200,7 +221,8 @@ class StableDiffusionWalkPipeline:
                     guidance_scale=guidance_scale, eta=eta,
                     generator=torch.Generator(self.device).manual_seed(
                         noise_seed),
-                    output_dtype="uint8")
+                    output_dtype="uint8", pooled=pooled,
+                    uncond_pooled=uncond_pooled)
                 # overlap: save the previous batch while this one computes
                 if pending is not None:
                     drain(pool, pending)
@@ -232,9 +254,11 @@ class StableDiffusionWalkPipeline:
         height = height or self.models.default_size
         width = width or self.models.default_size
         if batch_size is None:
-            # the JAX package's default: 16 under ``fast``, whose cond-only
-            # segments run one UNet row a frame
-            batch_size = 16 if self.fast else self.models.default_batch_size
+            # the JAX package's default: 16 under ``fast`` (but SDXL's),
+            # whose cond-only segments run one UNet row a frame; else the
+            # family's (1 for SDXL at 1024²)
+            batch_size = (16 if self.fast and not self.models.is_xl
+                          else self.models.default_batch_size)
         name = name or time.strftime("%Y%m%d-%H%M%S")
         save_path_root = Path(output_dir) / name
 

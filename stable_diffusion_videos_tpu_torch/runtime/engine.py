@@ -1,7 +1,9 @@
 """The denoise engine: CFG denoise loop plus VAE decode per dispatch.
 
-Counterpart of the SD 1.x path of ``stable_diffusion_videos_tpu/runtime/
-engine.py``: text embedding with an LRU cache, host-built scheduler tables,
+Counterpart of ``stable_diffusion_videos_tpu/runtime/engine.py`` for the SD
+1.x, SD 2.x and SDXL-base bundles: text embedding with an LRU cache (SDXL:
+both towers' penultimate states concatenated, and tower 2's pooled output
+for text_time), host-built scheduler tables,
 a CFG loop over the sampler's steps (the JAX package's ``lax.scan`` as a
 Python loop; PyTorch enqueues the kernels asynchronously), DeepCache step
 caching and limited-interval CFG (``lax.cond`` and the scan's segments as
@@ -10,9 +12,11 @@ with on-device uint8 quantisation, and batch-bucket padding.  The stochastic
 samplers draw their transition noise on the device from a
 ``torch.Generator`` (one field broadcast over the batch under
 ``frozen_noise``); the decode is the KL decoder, whole or in overlapping
-tiles (``vae_tile``), or the TAESD tiny decoder (``tiny_decoder``).  The
-boundary keeps the JAX package's layout: noise in ``(B, h, w, 4)``, frames
-out ``(B, H, W, 3)``.
+tiles (``vae_tile``), or the TAESD tiny decoder (``tiny_decoder``).  An
+SDXL dispatch carries its added conditions (the CFG-stacked pooled
+embeddings and the size/crop time ids) beside the context, sliced to their
+cond half wherever the context is.  The boundary keeps the JAX package's
+layout: noise in ``(B, h, w, 4)``, frames out ``(B, H, W, 3)``.
 
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
@@ -77,6 +81,11 @@ class Engine:
                  vae_tile: Optional[int] = None, vae_tile_overlap: int = 16,
                  **unported):
         refuse_unported("Engine", UNPORTED, unported)
+        if models.is_xl and models.unet_config.addition_num_ids != 6:
+            raise NotImplementedError(
+                "the SDXL refiner's text_time ids (addition_num_ids="
+                f"{models.unet_config.addition_num_ids}) belong to the "
+                "img2img stage, which the PyTorch package does not have yet")
         if tiny_decoder and models.taesd_decoder() is None:
             raise ValueError(
                 "tiny_decoder=True requires TAESD weights on the bundle: "
@@ -130,7 +139,8 @@ class Engine:
         self.vae_tile_overlap = vae_tile_overlap
         self._lock = threading.Lock()
         self._tables_cache: dict = {}
-        self._embed_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+        #: prompt tuple -> (hidden states, pooled output or None)
+        self._embed_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
 
     def set_scheduler(self, name: str) -> None:
         """Switch the sampler on a live engine.  Tables are keyed by sampler
@@ -145,17 +155,42 @@ class Engine:
     # ------------------------------------------------------------------
     # text embedding
     # ------------------------------------------------------------------
-    @torch.no_grad()
     def embed_text(self, text) -> torch.Tensor:
-        """Prompt(s) -> (B, 77, D) hidden states on the device."""
+        """Prompt(s) -> (B, 77, D) hidden states on the device.  For an SDXL
+        bundle D is the two towers' concatenation (768 + 1280), in fp32."""
+        return self._embed(text)[0]
+
+    def embed_text_pooled(self, text) -> torch.Tensor:
+        """SDXL: prompt(s) -> (B, Dp) projected pooled embedding of tower
+        2, the text half of the text_time conditioning."""
+        pooled = self._embed(text)[1]
+        if pooled is None:
+            raise ValueError("pooled embeddings require an SDXL bundle "
+                             "(text_config_2)")
+        return pooled
+
+    @torch.no_grad()
+    def _embed(self, text) -> tuple:
+        """Prompt(s) -> (hidden states, pooled output or None), cached.
+        With a second tower (SDXL-base) the towers' states concatenate; the
+        pooled output is tower 2's."""
         key = (text,) if isinstance(text, str) else tuple(text)
         with self._lock:
             if key in self._embed_cache:
                 self._embed_cache.move_to_end(key)
                 return self._embed_cache[key]
-        ids = self.models.tokenizer(list(key))["input_ids"]
-        out = self.models.text_encoder(
-            torch.as_tensor(ids, dtype=torch.long, device=self.device))
+        m = self.models
+
+        def ids(tok):
+            return torch.as_tensor(tok(list(key))["input_ids"],
+                                   dtype=torch.long, device=self.device)
+
+        if m.text_encoder_2 is None:
+            out = (m.text_encoder(ids(m.tokenizer))[0], None)
+        else:
+            h1 = m.text_encoder(ids(m.tokenizer))[0]
+            h2, pooled = m.text_encoder_2(ids(m.tokenizer_2 or m.tokenizer))
+            out = (torch.cat([h1.float(), h2.float()], dim=-1), pooled)
         with self._lock:
             self._embed_cache[key] = out
             self._embed_cache.move_to_end(key)
@@ -290,12 +325,41 @@ class Engine:
                 weight[:, y0 * f:y1 * f, x0 * f:x1 * f] += wmap
         return out / weight.clamp_min(1e-8)
 
+    def _added_conds(self, pad, pooled, uncond_pooled, B: int, Bp: int,
+                     h: int, w: int) -> tuple:
+        """SDXL text_time conditioning of one dispatch: the CFG-stacked
+        pooled embeddings (uncond rows first, pad rows included) and the
+        size/crop ids (h·f, w·f, 0, 0, h·f, w·f) for every row; () for
+        the other families."""
+        if not self.models.is_xl:
+            if pooled is not None or uncond_pooled is not None:
+                raise ValueError("pooled embeddings are SDXL conditioning; "
+                                 "this bundle has no text_time")
+            return ()
+        if pooled is None:
+            raise ValueError("SDXL bundle: pass pooled= (see "
+                             "embed_text_pooled)")
+        if uncond_pooled is None:
+            uncond_pooled = self.embed_text_pooled("")
+        pooled = self._to_device(pooled)
+        uncond_pooled = self._to_device(uncond_pooled)
+        if uncond_pooled.shape[0] == 1 and B > 1:
+            uncond_pooled = uncond_pooled.expand(
+                (B,) + tuple(uncond_pooled.shape[1:]))
+        f = self.models.vae_scale_factor
+        ids = torch.tensor([h * f, w * f, 0, 0, h * f, w * f],
+                           dtype=torch.float32, device=self.device)
+        return (torch.cat([pad(uncond_pooled), pad(pooled)]),
+                ids.expand(2 * Bp, 6))
+
     @torch.no_grad()
-    def _program(self, context, latents, guidance: float, sched, tables,
-                 out_u8: bool, generator: NoiseSource) -> torch.Tensor:
+    def _program(self, context, added, latents, guidance: float, sched,
+                 tables, out_u8: bool,
+                 generator: NoiseSource) -> torch.Tensor:
         """The denoise loop and the decode.  Each ``guidance_interval``
-        segment runs with CFG (2B UNet rows, ``context`` whole) or cond-only
-        (B rows, its cond half).  With ``step_cache`` the full-trunk
+        segment runs with CFG (2B UNet rows, ``context`` and the SDXL
+        ``added`` conditions whole) or cond-only (B rows, their cond
+        halves).  With ``step_cache`` the full-trunk
         decision is a host boolean, and the deep feature a Python variable
         that each segment's first step (always full) sets.  A stochastic
         sampler's step gets a noise field drawn on the device."""
@@ -314,8 +378,13 @@ class Engine:
                 return transition_noise(generator, x, self.frozen_noise)
         else:
             draw = generator
+        def cond_half(t):
+            return t[t.shape[0] // 2:]
+
         for a, b, cfg_on in segments:
-            ctx = context if cfg_on else context[context.shape[0] // 2:]
+            ctx = context if cfg_on else cond_half(context)
+            add = added if cfg_on else tuple(map(cond_half, added))
+            xl = dict(text_embeds=add[0], time_ids=add[1]) if add else {}
             deep = None
             for i in range(a, b):
                 inp = sched.scale_model_input(tables, state, i, lat)
@@ -326,9 +395,10 @@ class Engine:
                     full = (full_mask[i] if full_mask is not None
                             else (i - a) % k == 0)
                     eps, deep = unet(x, tb, ctx, cache_split=split,
-                                     deep_feature=None if full else deep)
+                                     deep_feature=None if full else deep,
+                                     **xl)
                 else:
-                    eps = unet(x, tb, ctx)
+                    eps = unet(x, tb, ctx, **xl)
                 if cfg_on:
                     eps_u, eps_c = eps.chunk(2)
                     eps = apply_guidance(eps_u, eps_c, guidance,
@@ -344,14 +414,17 @@ class Engine:
                              num_inference_steps: int = 50,
                              guidance_scale: float = 7.5, eta: float = 0.0,
                              generator: Optional[NoiseSource] = None,
-                             output_dtype: str = "float32"):
+                             output_dtype: str = "float32", pooled=None,
+                             uncond_pooled=None):
         """Enqueue one dispatch; returns (frames on the device, valid).
 
         cond/uncond: (B, S, D) text embeddings (uncond may be (1, S, D));
-        noise: (B, h, w, 4).  The batch is padded to the bucket, so callers
-        slice ``[:valid]``.  ``output_dtype="uint8"`` quantises on the
-        device (after the blend, under ``vae_tile``).  ``eta`` is a ddim
-        parameter.  ``generator`` is the stochastic samplers' noise source
+        noise: (B, h, w, 4).  An SDXL bundle also takes ``pooled`` (B, Dp)
+        and ``uncond_pooled`` ((B or 1, Dp); by default the pooled
+        embedding of ``""``), from ``embed_text_pooled``.  The batch is
+        padded to the bucket, so callers slice ``[:valid]``.
+        ``output_dtype="uint8"`` quantises on the device (after the blend,
+        under ``vae_tile``).  ``eta`` is a ddim parameter.  ``generator`` is the stochastic samplers' noise source
         (the JAX engine's ``key``): a ``torch.Generator`` on the engine's
         device, by default one seeded 0, or a callable ``(i, latents) ->
         field`` (fields of the latents' shape, or ``(1, C, h, w)`` to
@@ -373,14 +446,16 @@ class Engine:
             return torch.cat([x, fill])
 
         context = torch.cat([pad(uncond), pad(cond)])
+        added = self._added_conds(pad, pooled, uncond_pooled, B, Bp,
+                                  noise.shape[1], noise.shape[2])
         latents = pad(noise).permute(0, 3, 1, 2)
         with self._lock:
             sched_name, sched = self.scheduler_name, self.sched
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        imgs = self._program(context, latents, float(guidance_scale), sched,
-                             self._tables(sched_name, sched,
-                                          num_inference_steps, eta),
+        imgs = self._program(context, added, latents, float(guidance_scale),
+                             sched, self._tables(sched_name, sched,
+                                                 num_inference_steps, eta),
                              output_dtype == "uint8", generator)
         return imgs, B
 

@@ -130,9 +130,9 @@ def test_unported_options_raise(where, kw, tmp_path):
 
 def test_port_never_imports_jax(tmp_path):
     """A walk with video and audio, one with dpm x ``step_cache=2``, one
-    with lcm under ``frozen_noise``, and decodes through the tiny decoder
-    and in tiles import neither jax nor the JAX package, not even its
-    host-only modules."""
+    with lcm under ``frozen_noise``, a tiny SDXL-shaped walk under ``fast``,
+    and decodes through the tiny decoder and in tiles import neither jax
+    nor the JAX package, not even its host-only modules."""
     wav = click_track(tmp_path / "beat.wav")
     code = (
         "import sys, torch\n"
@@ -151,6 +151,10 @@ def test_port_never_imports_jax(tmp_path):
         ".walk(prompts=['a', 'b'], seeds=[1, 2], num_interpolation_steps=2, "
         "height=32, width=32, num_inference_steps=2, batch_size=2, "
         f"make_video=False, output_dir={str(tmp_path)!r}, name='l')\n"
+        "P.tiny_xl(torch.device('cpu'), fast=True).walk(prompts=['a', 'b'], "
+        "seeds=[1, 2], num_interpolation_steps=2, height=32, width=32, "
+        "num_inference_steps=3, batch_size=2, make_video=False, "
+        f"output_dir={str(tmp_path)!r}, name='x')\n"
         "from stable_diffusion_videos_tpu_torch.models.bundle import "
         "SDModels\n"
         "from stable_diffusion_videos_tpu_torch.runtime.engine import "
@@ -170,6 +174,7 @@ def test_port_never_imports_jax(tmp_path):
     assert len(list(tmp_path.glob("n/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("d/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("l/**/frame*.png"))) == 2
+    assert len(list(tmp_path.glob("x/**/frame*.png"))) == 2
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
