@@ -49,9 +49,9 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    frames, ddim-50 under v-prediction, CFG 7.5, dispatch batch 8 (the
    bucket pads 4 frames to 8), and warm seconds of one 8-frame dispatch;
    each run's launches by shape, every one of which phase 3 checks (its
-   rows of these families run in bf16 only, the walks' dtype, with the
-   D=64 rows also timed at the depth 80 that served them before the
-   depth-64 instantiation).
+   rows of these families run in bf16 only, the walks' dtype, with each
+   D=64 row also timed against the depth 80 that served it before the
+   depth-64 instantiation, in turns on the device clock).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -257,6 +257,29 @@ def time_ms(torch, fn, warmup: int = 2, window_ms: float = 20.0) -> float:
     return start.elapsed_time(end) / reps
 
 
+def queued_ms(torch, fn, reps: int) -> float:
+    """Mean device ms a call over ``reps`` back-to-back calls enqueued
+    behind a device sleep that outlasts their enqueueing, so the host's
+    launch rate (tens of microseconds a wrapper call) does not enter."""
+    cycles = 50_000_000
+    fn()
+    while True:
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if e0.elapsed_time(e1) > host_ms:
+            return e1.elapsed_time(e2) / reps
+        cycles *= 2
+
+
 def compare(torch, name, out, ref, dtype_name) -> float:
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -408,12 +431,19 @@ def phase_kernels(torch):
                 qh, kh, vh))
             del qh, kh, vh
             if dt == torch.bfloat16 and d == 64:
-                # the work of the depth these heads ran at before: inputs
-                # zero-padded to 80 columns
+                # against the work of the depth these heads ran at before
+                # (inputs zero-padded to 80 columns), in turns 64, 80, 80,
+                # 64, least of each, on the device clock
                 q8, k8, v8 = (F.pad(t, (0, 16)) for t in (q, k, v))
-                ms80 = time_ms(torch, lambda: flash_attention(q8, k8, v8))
-                scaled += f"; at depth 80 {ms80:.4f} ms"
-                del q8, k8, v8
+                reps = int(min(100, max(5, 20.0 / ms)))
+                turns = {64: lambda: flash_attention(q, k, v),
+                         80: lambda: flash_attention(q8, k8, v8)}
+                read = {64: [], 80: []}
+                for depth in (64, 80, 80, 64):
+                    read[depth].append(queued_ms(torch, turns[depth], reps))
+                scaled += (f"; queued in turns: depth 64 {min(read[64]):.4f}"
+                           f" ms, depth 80 {min(read[80]):.4f} ms")
+                del q8, k8, v8, turns
             record("flash_attention", (b, sq, sk, h, d), name + scaled, dt,
                    err, ms, pms, lms, attn_bound(b, sq, sk, h, d, eb))
             del q, k, v
@@ -872,7 +902,7 @@ def phase_families(torch):
                  uncond_pooled=eng.embed_text_pooled(""),
                  num_inference_steps=50, guidance_scale=7.5)
     warm, times = warm_seconds(torch, lambda: eng.denoise_frames(
-        output_dtype="uint8", **xl_in), runs=2)
+        output_dtype="uint8", **xl_in))
     print(f"families: SDXL-base warm dispatch of 1 frame at 1024², pndm-50 "
           f"CFG 7.5: {warm:.4f} s (min of {times}) on {line}")
     fast = StableDiffusionWalkPipeline(xl, dev, fast=True)
@@ -910,7 +940,7 @@ def phase_families(torch):
           f"call at this batch) on {line}")
     warm, times = warm_seconds(torch, lambda: pipe.engine.denoise_frames(
         cond, uncond, noise, num_inference_steps=50, guidance_scale=7.5,
-        output_dtype="uint8"), runs=2)
+        output_dtype="uint8"))
     print(f"families: SD 2.1 768-v warm dispatch of 8 frames at 768², "
           f"ddim-50 v-prediction CFG 7.5: {warm:.4f} s (min of {times}), "
           f"{8 / warm:.4f} frames/s, on {line}")

@@ -45,42 +45,47 @@ def _nvcc() -> str:
     return found
 
 
-def compile_library(csrc: Path, so: Path) -> tuple[float, str]:
-    """Compile every ``*.cu`` of ``csrc`` with ``nvcc``, one process a
-    source, all started together, and link them into ``so``.  Returns the
-    seconds it took and the nvcc/ptxas log; raises if nvcc fails."""
-    so.parent.mkdir(parents=True, exist_ok=True)
-    # names of this process: a concurrent build never loads a half-written
-    # library
-    tag = os.getpid()
-    tmp = so.with_name(f"{so.stem}.{tag}.so")
-    nvcc = _nvcc()
-    cus = sorted(csrc.glob("*.cu"))
-    objs = [so.parent / f"{cu.stem}.{tag}.o" for cu in cus]
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj),
-                               str(cu)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cu, obj in zip(cus, objs)]
-    log = "".join(p.communicate()[0] for p in procs)
-    failed = [p.returncode for p in procs if p.returncode != 0]
-    if not failed:
-        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
-                               *map(str, objs)], capture_output=True,
-                              text=True)
-        log += link.stdout + link.stderr
-        failed = [link.returncode] if link.returncode != 0 else []
-    seconds = time.perf_counter() - t0
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
-    os.replace(tmp, so)
-    return seconds, log
-
-
-def load(so: Path) -> ctypes.CDLL:
-    """A built kernel library, loaded, with its C entry points typed."""
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if this source hash has no
+    build yet.  ``library.build_seconds`` and ``library.ptxas_log`` record
+    what the build did (0.0 and "" when a finished build was found)."""
+    digest = hashlib.sha256()
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    so = out_dir / "libsdv_kernels.so"
+    library.build_seconds, library.ptxas_log = 0.0, ""
+    if not so.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # names of this process: a concurrent build never loads a
+        # half-written library
+        tag = os.getpid()
+        tmp = out_dir / f"libsdv_kernels.{tag}.so"
+        nvcc = _nvcc()
+        cus = sorted(CSRC.glob("*.cu"))
+        objs = [out_dir / f"{cu.stem}.{tag}.o" for cu in cus]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", str(obj),
+                                   str(cu)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cu, obj in zip(cus, objs)]
+        library.ptxas_log = "".join(p.communicate()[0] for p in procs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            library.ptxas_log += link.stdout + link.stderr
+            failed = [link.returncode] if link.returncode != 0 else []
+        library.build_seconds = time.perf_counter() - t0
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{library.ptxas_log}")
+        os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.sdv_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                         _F, _I, _P]
@@ -95,22 +100,6 @@ def load(so: Path) -> ctypes.CDLL:
     lib.sdv_error_string.argtypes = [_I]
     lib.sdv_error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source hash has no
-    build yet.  ``library.build_seconds`` and ``library.ptxas_log`` record
-    what the build did (0.0 and "" when a finished build was found)."""
-    digest = hashlib.sha256()
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    so = BUILD_ROOT / digest.hexdigest()[:16] / "libsdv_kernels.so"
-    library.build_seconds, library.ptxas_log = 0.0, ""
-    if not so.exists():
-        library.build_seconds, library.ptxas_log = compile_library(CSRC, so)
-    return load(so)
 
 
 def check(err: int, what: str) -> None:

@@ -11,8 +11,11 @@ one full and one shallow (DeepCache, split 1) UNet call at CFG batch 16
 timed with CUDA events, two dpm-20 x ``step_cache=2`` "ends" dispatches
 timed as above, and one under the profiler.  Then the distilled point: lcm-4
 cond-only under frozen noise at batch 8, two dispatches timed and one
-profiled, with the KL decoder and with the TAESD tiny decoder.  Needs a
-CUDA device; exits non-zero without one.
+profiled, with the KL decoder and with the TAESD tiny decoder.  Last,
+SDXL-base at 1024² on its random bf16 bundle: three warm dispatches of one
+frame (pndm-50, CFG 7.5) timed as above after one that warms up, and one
+10-step dispatch profiled.  Needs a CUDA device; exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -56,12 +59,13 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timed_dispatches(dispatch, label: str):
-    for i in range(TIMED_DISPATCHES):
+def timed_dispatches(dispatch, label: str, runs: int = TIMED_DISPATCHES,
+                     frames: int = 8):
+    for i in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         dispatch()
-        print(f"dispatch {i} (8 frames, {label}): "
+        print(f"dispatch {i} ({frames} frames, {label}): "
               f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
@@ -143,6 +147,26 @@ def main():
                      guidance_interval=(0.0, 0.0), tiny_decoder=tiny)
         timed_dispatches(dispatch(lcm, 4, guidance=1.0), label)
         profiled(dispatch(lcm, 4, guidance=1.0), label)
+
+    del pipe, eng, few, lcm, models
+    torch.cuda.empty_cache()
+    xl = Engine(SDModels.random("sdxl", seed=2, dtype=torch.bfloat16)
+                .to(dev), dev)
+    prompt = "a red fox"
+    xl_in = dict(cond=xl.embed_text(prompt), uncond=xl.embed_text(""),
+                 noise=torch.randn(1, 128, 128, 4, generator=torch.Generator()
+                                   .manual_seed(3)),
+                 pooled=xl.embed_text_pooled(prompt),
+                 uncond_pooled=xl.embed_text_pooled(""),
+                 guidance_scale=7.5, output_dtype="uint8")
+
+    def xl_dispatch(steps):
+        return lambda: xl.denoise_frames(num_inference_steps=steps, **xl_in)
+
+    xl_dispatch(50)()
+    timed_dispatches(xl_dispatch(50), "SDXL-base 1024², pndm-50", runs=3,
+                     frames=1)
+    profiled(xl_dispatch(PROFILE_STEPS), f"{PROFILE_STEPS}-step SDXL pndm")
 
 
 if __name__ == "__main__":
