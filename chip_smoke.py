@@ -17,8 +17,9 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    against the output's own scale, beside what that check reads for two
    planted faults.  Also the host time of a bf16 attention call's TMA
    tensor maps;
-4. golden: the full-geometry SD 1.x UNet and VAE decoder in fp32 (TF32 off)
-   against ``tests/goldens/sd1_full_geometry.npz``, which the JAX package's
+4. golden: the full-geometry SD 1.x UNet, VAE decoder and VAE encoder (its
+   posterior's mean and log-variance) in fp32 (TF32 off) against
+   ``tests/goldens/sd1_full_geometry.npz``, which the JAX package's
    reference produced;
 5. main path: ``walk()`` at 512², pndm-50, CFG 7.5, batch 8, two dispatches,
    on random bf16 weights; the kernels' launch counts come from this run,
@@ -51,7 +52,25 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    each run's launches by shape, every one of which phase 3 checks (its
    rows of these families run in bf16 only, the walks' dtype, with each
    D=64 row also timed against the depth 80 that served it before the
-   depth-64 instantiation, in turns on the device clock).
+   depth-64 instantiation, in turns on the device clock);
+9. edit: the edit paths on phase 5's bundle and frames: the KL encoder on
+   8 frames at 512² and through ``Engine(vae_tile=64, vae_tile_overlap=16)``
+   on the same frames at 1024² (first call and least of 2 warm); the
+   pipeline's img2img of the 8 frames at strength 0.6, CFG 7.5, under
+   pndm-50 (the warm-up replayed from the entry) and ddim-50, beside a warm
+   txt2img pndm-50 dispatch of 8; inpaint under pndm-50 with the left half
+   masked and with nothing masked, each held against the source encoded
+   and decoded;
+   vid2vid of a 16-frame video written by the port's ``FrameWriter``
+   (read back through ``probe_video``/``read_video_frames``) at strength
+   0.5 with one shared field, batch 8, written out as a video with audio
+   (frames/s for the whole call); the TAESD encoder on 8 frames (no hand-written kernel:
+   timing only).  Then the SDXL refiner at its published widths (its UNet
+   drawn, the SDXL VAE and bigG tower of phase 8 reused when it ran): one
+   1024² img2img frame at strength 0.3, ddim-50 (15 steps), CFG 7.5, batch
+   1, with build time and warm seconds (least of 2).  Each run's launches by
+   shape, every one of which phase 3 checks (this phase's new rows in bf16
+   only).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -76,12 +95,19 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled", "families")
+          "distilled", "families", "edit")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
 # the sampler math on the card against the CPU, fp32
 SAMPLER_TOL = dict(atol=1e-5, rtol=1e-5)
+# inpaint against the source encoded and decoded (frames in [0, 1], bf16):
+# after the last step the kept latents are the source's exactly, so with
+# nothing masked the frames are the source's round trip within one uint8
+# step; with the left half masked the decoder's mid-block attention reads
+# the regenerated half too, so the kept pixels may move a little, a mean of
+# at most 0.01
+INPAINT_KEPT = dict(keep_all_max=1 / 255, half_mean=0.01)
 # bf16 attention is also held to the output's own scale: at S=4096 the flat
 # 2e-2 is about one output std (softmax over ~1500 effective keys), so alone
 # it would pass a kernel that drops a key tile.  Limits: max|out-ref| over
@@ -181,6 +207,53 @@ FAMILY_GN_SHAPES = [((b, c, h, w), eps, silu)
                                      (2, XL_UNET_GN),
                                      (1, scaled_gn(VAE_GN, 2)))
                     for c, h, w, eps, silu in table]
+
+
+# Phase 9's edit paths, in bf16.  The KL encoder's GroupNorm calls at 512²
+# (C, H, W, eps, silu): two resnets a level at 512², 256², 128², 64² (each
+# level's first resnet normalises the level above's channels), the mid
+# block's resnets and attention norm, and conv_norm_out
+VAE_ENC_GN = [(128, 512, 512, 1e-6, True), (128, 256, 256, 1e-6, True),
+              (256, 256, 256, 1e-6, True), (256, 128, 128, 1e-6, True),
+              (512, 128, 128, 1e-6, True), (512, 64, 64, 1e-6, True),
+              (512, 64, 64, 1e-6, False)]
+# the SDXL refiner's UNet at 1024² (latents 128²): levels (384, 768, 1536,
+# 1536) at 128², 64², 32², 16², transformers at levels 1-2 and the mid
+# block, then the up path's concatenations (up to 3072 channels, 96 a group)
+REFINER_UNET_GN = [
+    (384, 128, 128, 1e-5, True), (384, 64, 64, 1e-5, True),
+    (768, 64, 64, 1e-5, True), (768, 64, 64, 1e-6, False),
+    (768, 32, 32, 1e-5, True), (1536, 32, 32, 1e-5, True),
+    (1536, 32, 32, 1e-6, False), (1536, 16, 16, 1e-5, True),
+    (1536, 16, 16, 1e-6, False), (3072, 16, 16, 1e-5, True),
+    (3072, 32, 32, 1e-5, True), (2304, 32, 32, 1e-5, True),
+    (2304, 64, 64, 1e-5, True), (1536, 64, 64, 1e-5, True),
+    (1152, 64, 64, 1e-5, True), (1152, 128, 128, 1e-5, True),
+    (768, 128, 128, 1e-5, True)]
+# (Sq, Sk, H) of the refiner's attentions, 64-channel heads: 12 heads at
+# level 1, 24 at level 2 and in the mid block
+REFINER_ATTN = [(4096, 4096, 12), (4096, 77, 12), (1024, 1024, 24),
+                (1024, 77, 24), (256, 256, 24), (256, 77, 24)]
+
+
+def new_rows(rows, *checked):
+    """``rows`` less those already in the ``checked`` tables, in order."""
+    seen = {r for table in checked for r in table}
+    return [r for r in dict.fromkeys(rows) if r not in seen]
+
+
+# the edit phase's keys that the earlier tables do not hold: the SD 1.x
+# encoder at batch 8 (512², and the 512² tiles of a 1024² tiled encode) and
+# the SDXL encoder at 1024², batch 1; the refiner's UNet at CFG batch 2
+# (its encoder and decoder attention, at 4096 and 16384 positions, and its
+# decoder's GroupNorm are the families' rows)
+EDIT_GN_SHAPES = new_rows(
+    [((b, c, h, w), eps, silu)
+     for b, table in ((8, VAE_ENC_GN), (1, scaled_gn(VAE_ENC_GN, 2)),
+                      (2, REFINER_UNET_GN))
+     for c, h, w, eps, silu in table], GN_SHAPES, FAMILY_GN_SHAPES)
+EDIT_ATTN_SHAPES = new_rows([(2, sq, sk, h, 64) for sq, sk, h in REFINER_ATTN],
+                            ATTN_SHAPES, FAMILY_ATTN_SHAPES)
 
 
 def gpu_line() -> str:
@@ -372,11 +445,16 @@ def phase_kernels(torch):
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                           bound_ms=0.0, bound_by={})
                for name in ("flash_attention", "groupnorm_silu")}
-    # the same sums over the rows phase 8's families add
-    family = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-              for name in summary}
-    family_keys = ({(*s, torch.bfloat16) for s in FAMILY_ATTN_SHAPES}
-                   | {(*c, torch.bfloat16) for c in FAMILY_GN_SHAPES})
+    # the same sums over the rows phase 8's families and phase 9's edit
+    # paths add
+    groups = {
+        group: ({(*s, torch.bfloat16) for s in attn}
+                | {(*c, torch.bfloat16) for c in gn},
+                {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                            bound_ms=0.0) for name in summary})
+        for group, attn, gn in (
+            ("families", FAMILY_ATTN_SHAPES, FAMILY_GN_SHAPES),
+            ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES))}
 
     def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
@@ -391,18 +469,18 @@ def phase_kernels(torch):
             s["library_ms"] += lms
             s["bound_ms"] += b_ms
             s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
-            if (*key, dt) in family_keys:
-                f = family[name]
-                for field, value in (("ms", ms), ("plain_ms", pms),
-                                     ("library_ms", lms),
-                                     ("bound_ms", b_ms)):
-                    f[field] += value
+            for keys, sums in groups.values():
+                if (*key, dt) in keys:
+                    for field, value in (("ms", ms), ("plain_ms", pms),
+                                         ("library_ms", lms),
+                                         ("bound_ms", b_ms)):
+                        sums[name][field] += value
 
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
         eb = torch.finfo(dt).bits // 8
-        # the families' rows in the walks' dtype only
-        shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES
+        # the families' and the edit paths' rows in the walks' dtype only
+        shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
                                 if dt == torch.bfloat16 else [])
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -458,7 +536,7 @@ def phase_kernels(torch):
             del q
         for shape, eps, silu, w_dt in (
                 [(*c, dt) for c in GN_SHAPES]
-                + [(*c, dt) for c in (FAMILY_GN_SHAPES
+                + [(*c, dt) for c in (FAMILY_GN_SHAPES + EDIT_GN_SHAPES
                                       if dt == torch.bfloat16 else [])]
                 + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
@@ -485,10 +563,11 @@ def phase_kernels(torch):
                    lms, gn_bound(shape, silu, eb))
             del x
         torch.cuda.empty_cache()
-    for name, f in family.items():
-        print(f"{name}: the families' bf16 rows sum to kernel "
-              f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, library "
-              f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms")
+    for group, (_, sums) in groups.items():
+        for name, f in sums.items():
+            print(f"{name}: the {group} bf16 rows sum to kernel "
+                  f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, library "
+                  f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms")
     return summary
 
 
@@ -515,11 +594,9 @@ def phase_golden(torch):
 
     def build(cls, cfg, manifest_key):
         shapes = json.loads(str(gold[manifest_key]))
-        skipped = getattr(cls, "SKIPPED_PREFIXES", ())
         with torch.device("meta"):
             mod = cls(cfg)
-        sd = {k: synth_value(k, tuple(s)) for k, s in shapes.items()
-              if not k.startswith(skipped)}
+        sd = {k: synth_value(k, tuple(s)) for k, s in shapes.items()}
         return load_state_dict(mod, sd, torch.float32).to(dev).eval()
 
     rng = np.random.default_rng(2024)
@@ -541,11 +618,20 @@ def phase_golden(torch):
         dec = vae.decode(torch.tensor(stepped.transpose(0, 3, 1, 2),
                                       device=dev))
         dec = dec.cpu().numpy().transpose(0, 2, 3, 1)
+        # the encoder's input of the golden (tests/test_full_geometry.py):
+        # tanh of its own stepped latents, upsampled 8x to 256², 3 channels
+        image = np.tanh(gold["stepped"].repeat(2, axis=1).repeat(2, axis=2)
+                        [..., :3].repeat(4, axis=1).repeat(4, axis=2))
+        mean, logvar = (m.cpu().numpy().transpose(0, 2, 3, 1)
+                        for m in vae.encode(torch.tensor(
+                            image.transpose(0, 3, 1, 2), device=dev)))
         del vae
     torch.cuda.empty_cache()
     for name, got, atol, rtol in (("eps", eps, 2e-3, 2e-3),
                                   ("stepped", stepped, 2e-2, 2e-3),
-                                  ("dec", dec, 2e-3, 2e-3)):
+                                  ("dec", dec, 2e-3, 2e-3),
+                                  ("mean", mean, 2e-3, 2e-3),
+                                  ("logvar", logvar, 2e-3, 2e-3)):
         err = float(np.abs(got - gold[name]).max())
         np.testing.assert_allclose(got, gold[name], atol=atol, rtol=rtol,
                                    err_msg=f"golden {name}")
@@ -603,8 +689,10 @@ def counted_run(torch, label: str, run):
     if min(launches.values()) <= 0 or max(plain_calls.values()) != 0:
         raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
-    checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES}
-               | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES})
+    checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES
+                + EDIT_ATTN_SHAPES}
+               | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES
+                  + EDIT_GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
                  if k not in checked]
     if unchecked:
@@ -651,12 +739,23 @@ def dispatch_inputs(torch, pipe, frames: int = 8):
     return cond, pipe.embed_text(""), noise
 
 
+def read_frames(run_dir: Path, n: int) -> np.ndarray:
+    """The first ``n`` frames of a walk's run directory, uint8 (n, H, W,
+    3)."""
+    from PIL import Image
+    return np.stack([np.asarray(Image.open(p).convert("RGB"))
+                     for p in sorted(run_dir.glob("**/frame*.png"))[:n]])
+
+
 def phase_main(torch, models):
+    """The walk and a float32 dispatch; -> (launches, the walk's first 8
+    frames)."""
     from stable_diffusion_videos_tpu_torch.pipeline import \
         StableDiffusionWalkPipeline
     pipe = StableDiffusionWalkPipeline(models, device=torch.device("cuda"))
     launches, walk_s = counted_run(torch, "main", lambda: walk_clip(
         pipe, "chip_smoke_walk", 50))
+    frames = read_frames(WORK / "chip_smoke_walk", 8)
     check_pngs(WORK / "chip_smoke_walk", 16)
     cond, uncond, noise = dispatch_inputs(torch, pipe)
     counted_run(torch, "main float32 dispatch", lambda: check_frames(
@@ -665,13 +764,16 @@ def phase_main(torch, models):
             output_dtype="float32")))
     print(f"main: {16 / walk_s:.4f} frames/s (walk wall time, first call "
           f"included) on {gpu_line()}")
-    return launches
+    return launches, frames
 
 
-def warm_seconds(torch, dispatch, runs: int = 3) -> tuple[float, list]:
+def warm_seconds(torch, dispatch, runs: int = 3,
+                 warmed: bool = False) -> tuple[float, list]:
     """min and all of ``runs`` wall times of ``dispatch()``, which ends in a
-    device->host copy, after one call that warms it."""
-    dispatch()
+    device->host copy, after one call that warms it (none if ``warmed``:
+    the caller has just made one)."""
+    if not warmed:
+        dispatch()
     times = []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -877,8 +979,9 @@ def family_bundle(torch, family: str, seed: int):
 
 def phase_families(torch):
     """SDXL-base at 1024² and SD 2.1 768-v at 768² at their published
-    widths: walks, warm dispatches and one SDXL ``fast`` dispatch; -> {run:
-    {kernel: launches}}."""
+    widths: walks, warm dispatches and one SDXL ``fast`` dispatch; -> ({run:
+    {kernel: launches}}, the SDXL bundle's VAE and bigG tower for phase
+    9)."""
     from stable_diffusion_videos_tpu_torch.pipeline import \
         StableDiffusionWalkPipeline
     dev = torch.device("cuda")
@@ -912,6 +1015,9 @@ def phase_families(torch):
                 output_dtype="float32", **xl_in), shape=(1, 1024, 1024, 3)))
     print(f"families: SDXL-base fast (pndm-50 x step_cache=2) dispatch of 1 "
           f"frame {fast_s:.4f} s (first call) on {line}")
+    xl_parts = dict(vae_config=xl.vae_config, vae=xl.vae,
+                    text_config=xl.text_config_2,
+                    text_encoder=xl.text_encoder_2)
     del pipe, fast, eng, xl, xl_in
     torch.cuda.empty_cache()
 
@@ -946,6 +1052,202 @@ def phase_families(torch):
           f"{8 / warm:.4f} frames/s, on {line}")
     del pipe, sd2
     torch.cuda.empty_cache()
+    return out, xl_parts
+
+
+def refiner_bundle(torch, xl_parts=None, seed: int = 4):
+    """The random bf16 SDXL-refiner bundle at its published widths on the
+    card: its UNet drawn, with phase 8's SDXL VAE and bigG tower (the same
+    published geometry) when given, else the whole bundle drawn."""
+    from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
+    from stable_diffusion_videos_tpu_torch.models.tokenizer import \
+        HashTokenizer
+    from stable_diffusion_videos_tpu_torch.models.unet import (
+        UNet2DCondition, UNetConfig)
+    from stable_diffusion_videos_tpu_torch.models.weights import (
+        load_state_dict, random_state_dict)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    t0 = time.perf_counter()
+    if xl_parts is None:
+        models = SDModels.random("sdxl_refiner", seed=seed, dtype=bf16)
+    else:
+        cfg = UNetConfig.sd_xl_refiner()
+        with torch.device("meta"):
+            unet = UNet2DCondition(cfg)
+        load_state_dict(unet, random_state_dict(unet, seed, 0.02, bf16), bf16)
+        models = SDModels.refiner(SDModels(
+            cfg, xl_parts["vae_config"], xl_parts["text_config"],
+            unet.eval().requires_grad_(False), xl_parts["vae"],
+            xl_parts["text_encoder"], HashTokenizer(
+                vocab_size=xl_parts["text_config"].vocab_size)))
+    models = models.to(dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in models.unet.parameters())
+    print(f"edit: random SDXL-refiner bundle (UNet {n / 1e9:.3f}B "
+          f"parameters{', VAE and bigG reused' if xl_parts else ''}) built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    return models
+
+
+def phase_edit(torch, models, frames, xl_parts):
+    """Encode whole and tiled, img2img under pndm-50 and ddim-50, inpaint,
+    vid2vid, the TAESD encoder, and the SDXL refiner's img2img frame; ->
+    {run: {kernel: launches}}."""
+    from stable_diffusion_videos_tpu_torch.audio.analysis import save_wav
+    from stable_diffusion_videos_tpu_torch.media.video import (FrameWriter,
+                                                               probe_video)
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    dev = torch.device("cuda")
+    line = gpu_line()
+    prompt, out = "a watercolour painting of a fox", {}
+    WORK.mkdir(parents=True, exist_ok=True)
+    if frames is None:  # phase 5 did not run: one dispatch's frames
+        cond, uncond, noise = dispatch_inputs(
+            torch, StableDiffusionWalkPipeline(models, dev))
+        frames = Engine(models, dev).denoise_frames(
+            cond, uncond, noise, num_inference_steps=20,
+            output_dtype="uint8")
+    src = frames.astype(np.float32) / 255.0 * 2.0 - 1.0    # (8, 512², 3)
+    src_1024 = src.repeat(2, axis=1).repeat(2, axis=2)
+    pipe = StableDiffusionWalkPipeline(models, dev)
+
+    # the KL encoder, whole at 512² and in 9 tiles of 512² at 1024²
+    tiled = Engine(models, dev, vae_tile=64, vae_tile_overlap=16)
+    for label, eng, x, side in (("encode", pipe.engine, src, 64),
+                                ("tiled_encode", tiled, src_1024, 128)):
+        lat = {}
+        out[label], first = counted_run(
+            torch, f"edit {label}", lambda: lat.update(
+                z=eng.encode_image(x).cpu().numpy()))
+        check_frames(f"edit: {label}", lat["z"], shape=(8, side, side, 4))
+        warm, times = warm_seconds(
+            torch, lambda: eng.encode_image(x).cpu(), runs=2, warmed=True)
+        print(f"edit: {label} of 8 frames at {side * 8}² -> latents "
+              f"{lat['z'].shape}: first {first:.4f} s, warm {warm:.4f} s "
+              f"(min of {times}) on {line}")
+
+    # img2img at strength 0.6 beside a txt2img dispatch, on the same frames
+    cond, uncond, noise = dispatch_inputs(torch, pipe)
+    warm, times = warm_seconds(torch, lambda: pipe.engine.denoise_frames(
+        cond, uncond, noise, num_inference_steps=50, guidance_scale=7.5,
+        output_dtype="uint8"), runs=2)
+    print(f"edit: txt2img pndm-50 warm dispatch of 8 frames {warm:.4f} s "
+          f"(min of {times}) on {line}")
+    for name in ("pndm", "ddim"):
+        p = pipe if name == "pndm" else StableDiffusionWalkPipeline(
+            models, dev, scheduler=name)
+        res = {}
+        run = dict(strength=0.6, num_inference_steps=50, guidance_scale=7.5)
+        out[f"img2img_{name}50"], first = counted_run(
+            torch, f"edit img2img {name}-50", lambda: res.update(x=p.img2img(
+                frames, prompt, output_type="np", **run)))
+        check_frames(f"edit: img2img {name}-50", res["x"])
+        warm, times = warm_seconds(torch, lambda: p.img2img(
+            frames, prompt, output_type="np", **run), runs=2, warmed=True)
+        print(f"edit: img2img {name}-50 at strength 0.6 (30 steps) of 8 "
+              f"frames, encode included: first {first:.4f} s, warm "
+              f"{warm:.4f} s (min of {times}) on {line}")
+
+    # inpaint: the left half regenerated, the right half kept; then
+    # nothing masked, which must give the source's round trip
+    mask = np.zeros((512, 512), np.float32)
+    mask[:, :256] = 1.0
+    res = {}
+    out["inpaint_pndm50"], first = counted_run(
+        torch, "edit inpaint pndm-50", lambda: res.update(x=pipe.inpaint(
+            frames, mask, prompt, num_inference_steps=50,
+            guidance_scale=7.5, output_type="np")))
+    check_frames("edit: inpaint pndm-50", res["x"])
+    warm, times = warm_seconds(torch, lambda: pipe.inpaint(
+        frames, mask, prompt, num_inference_steps=50, guidance_scale=7.5,
+        output_type="np"), runs=2, warmed=True)
+    recon = pipe.engine.decode_latents(pipe.engine.encode_image(src))
+    keep_all = pipe.inpaint(frames, np.zeros_like(mask), prompt,
+                            num_inference_steps=50, guidance_scale=7.5,
+                            output_type="np")
+    keep_all_max = float(np.abs(keep_all - recon).max())
+    # away from the seam by the decoder's 3x3 convolutions' reach (its
+    # mid-block attention still sees the whole latent)
+    kept = np.abs(res["x"][:, :, 320:] - recon[:, :, 320:]).mean()
+    regen = np.abs(res["x"][:, :, :192] - recon[:, :, :192]).mean()
+    print(f"edit: inpaint pndm-50 of 8 frames: first {first:.4f} s, warm "
+          f"{warm:.4f} s (min of {times}) on {line}; against the source "
+          f"encoded and decoded: nothing masked max abs {keep_all_max:.3e} "
+          f"(limit {INPAINT_KEPT['keep_all_max']:.3e}); left half masked, "
+          f"mean abs kept half {kept:.5f} (limit "
+          f"{INPAINT_KEPT['half_mean']}), regenerated half {regen:.5f}")
+    if (keep_all_max > INPAINT_KEPT["keep_all_max"]
+            or kept > INPAINT_KEPT["half_mean"]):
+        raise AssertionError(f"inpaint: the kept region moved (nothing "
+                             f"masked {keep_all_max:.3e}, half {kept:.5f})")
+
+    # vid2vid of a 16-frame video written by the port's own writer (its
+    # ladder's first available rung: no ffmpeg here, and the native MJPEG
+    # sink needs libjpeg's headers, so cv2), read back through
+    # probe_video/read_video_frames, restyled and written out with audio
+    source = FrameWriter(WORK / "edit_source.mp4", fps=8)
+    for fr in np.concatenate([frames, frames[:, :, ::-1]]):
+        source.add_frame(np.ascontiguousarray(fr))
+    source.close()
+    info = probe_video(source.output_filepath)
+    print(f"edit: source video by the {source.backend} writer: {info}")
+    wav = WORK / "edit_audio.wav"
+    save_wav(str(wav), (0.1 * np.sin(np.arange(44100) * 0.0628))
+             .astype(np.float32), 22050)
+    video = {}
+    out["vid2vid"], secs = counted_run(
+        torch, "edit vid2vid", lambda: video.update(path=pipe.vid2vid(
+            source.output_filepath, prompt, strength=0.5,
+            num_inference_steps=50, guidance_scale=7.5, batch_size=8,
+            shared_noise=True, audio_filepath=str(wav),
+            output_filepath=str(WORK / "edit_vid2vid.mp4"))))
+    written = probe_video(video["path"])
+    print(f"edit: vid2vid of 16 frames at 512², pndm-50 strength 0.5, shared "
+          f"field, batch 8, with audio: {secs:.4f} s, {16 / secs:.4f} "
+          f"frames/s (the whole call: read, encode, 2 dispatches, write; "
+          f"first call) on {line}; wrote {written}")
+    if (written["n_frames"], written["width"], written["height"]) != (
+            16, 512, 512):
+        raise AssertionError(f"vid2vid wrote {written}")
+    for p in WORK.glob("edit_*"):
+        p.unlink()
+
+    # the TAESD encoder at its published geometry (cuDNN: no hand-written
+    # kernel runs, so it is timed, not counted)
+    x01 = torch.from_numpy(frames).to(dev).permute(0, 3, 1, 2).float() / 255
+    with torch.no_grad():
+        z = models.taesd.encode(x01)
+    check_frames("edit: TAESD encode", z.float().cpu().numpy(),
+                 shape=(8, 4, 64, 64))
+    with torch.no_grad():
+        warm, times = warm_seconds(
+            torch, lambda: models.taesd.encode(x01).cpu(), runs=2,
+            warmed=True)
+    print(f"edit: TAESD encoder of 8 frames at 512²: warm {warm:.4f} s (min "
+          f"of {times}) on {line}")
+    del pipe, tiled
+    torch.cuda.empty_cache()
+
+    # the SDXL refiner: one 1024² img2img frame
+    refiner = refiner_bundle(torch, xl_parts)
+    rpipe = StableDiffusionWalkPipeline(refiner, dev, scheduler="ddim")
+    image = frames[:1].repeat(2, axis=1).repeat(2, axis=2)
+    run = dict(strength=0.3, num_inference_steps=50, guidance_scale=7.5,
+               output_type="np")
+    res = {}
+    out["refiner_img2img"], first = counted_run(
+        torch, "edit refiner img2img", lambda: res.update(x=rpipe.img2img(
+            image, prompt, **run)))
+    check_frames("edit: refiner img2img", res["x"], shape=(1, 1024, 1024, 3))
+    warm, times = warm_seconds(torch, lambda: rpipe.img2img(
+        image, prompt, **run), runs=2, warmed=True)
+    print(f"edit: SDXL-refiner img2img of 1 frame at 1024², ddim-50 at "
+          f"strength 0.3 (15 steps) CFG 7.5, encode included: first "
+          f"{first:.4f} s, warm {warm:.4f} s (min of {times}) on {line}")
+    del rpipe, refiner
+    torch.cuda.empty_cache()
     return out
 
 
@@ -961,9 +1263,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep, distilled, families = (None,) * 5
+    summary, launches, fewstep, distilled, families, edit = (None,) * 6
+    frames, xl_parts = None, None
     models = (sd1_bundle(torch)
-              if {"main", "fewstep", "distilled"} & set(phases) else None)
+              if {"main", "fewstep", "distilled", "edit"} & set(phases)
+              else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -975,13 +1279,16 @@ def main():
         elif name == "golden":
             phase_golden(torch)
         elif name == "main":
-            launches = phase_main(torch, models)
+            launches, frames = phase_main(torch, models)
         elif name == "fewstep":
             fewstep = phase_fewstep(torch, models)
         elif name == "distilled":
             distilled = phase_distilled(torch, models)
+        elif name == "families":
+            families, xl_parts = phase_families(torch)
         else:
-            families = phase_families(torch)
+            edit = phase_edit(torch, models, frames, xl_parts)
+            xl_parts = None
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -1007,6 +1314,8 @@ def main():
                                    for run, counts in distilled.items()}
         k["launches_families"] = {run: counts[wrapper[k["name"]]]
                                   for run, counts in families.items()}
+        k["launches_edit"] = {run: counts[wrapper[k["name"]]]
+                              for run, counts in edit.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

@@ -3,7 +3,8 @@ loop index.
 
 Counterpart of ``stable_diffusion_videos_tpu/core/schedulers/base.py``.
 ``make_tables(config, num_inference_steps)`` runs once on the host in
-float64 numpy; ``step(tables, state, i, model_output, sample, noise)`` is a
+float64 numpy (the warm-up samplers pndm, lms and unipc also take
+``start_index``: the tables of a schedule entered mid-way, for img2img); ``step(tables, state, i, model_output, sample, noise)`` is a
 pure function of the loop index ``i``, called from a Python loop (the JAX
 package's ``lax.scan``).  Per-step coefficients are read on the host as
 Python floats, so a step launches no device-to-host copy.
@@ -181,6 +182,14 @@ class Scheduler:
     def step(self, tables, state, i, model_output, sample,
              noise: Optional[torch.Tensor] = None):
         raise NotImplementedError
+
+    def add_noise(self, tables, original: torch.Tensor, noise: torch.Tensor,
+                  timestep: int) -> torch.Tensor:
+        """``original`` noised to training timestep ``timestep``:
+        sqrt(ᾱ)·x + sqrt(1 - ᾱ)·noise, the scalars in float32."""
+        acp = tables["alphas_cumprod"][int(timestep)]
+        return (float(np.sqrt(acp)) * original
+                + float(np.sqrt(ONE_F32 - acp)) * noise)
 
 
 _REGISTRY: dict[str, Any] = {}

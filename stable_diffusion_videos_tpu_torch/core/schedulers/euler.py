@@ -35,8 +35,12 @@ def sigma_tables(cfg: SchedulerConfig, num_inference_steps: int):
 
 
 class EulerBase(Scheduler):
-    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int):
+    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int,
+                    start_index: int = 0):
+        """``start_index`` > 0 truncates the sigma grid (img2img's
+        mid-schedule entry; lms rebuilds its coefficients over it)."""
         ts, sigmas = sigma_tables(cfg, num_inference_steps)
+        ts, sigmas = ts[start_index:], sigmas[start_index:]
         f32 = np.float32
         return {
             "timesteps": ts.astype(f32),

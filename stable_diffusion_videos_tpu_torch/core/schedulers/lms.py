@@ -40,8 +40,12 @@ def lms_coeff_matrix(sigmas: np.ndarray, order: int) -> np.ndarray:
 class LMS(EulerBase):
     name = "lms"
 
-    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int):
-        tables = super().make_tables(cfg, num_inference_steps)
+    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int,
+                    start_index: int = 0):
+        """With ``start_index`` the coefficients are integrated over the
+        truncated grid, so the Adams-Bashforth warm-up (orders 1, 2, ...)
+        replays at the entry, where the history is empty."""
+        tables = super().make_tables(cfg, num_inference_steps, start_index)
         tables["lms_coeffs"] = lms_coeff_matrix(
             tables["sigmas"].astype(np.float64),
             cfg.lms_order).astype(np.float32)

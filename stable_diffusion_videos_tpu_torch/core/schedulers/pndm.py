@@ -31,7 +31,12 @@ _AB_WEIGHTS = ([1, 0, 0, 0, 0], [0.5, 0.5, 0, 0, 0], [0, 3 / 2, -1 / 2, 0, 0],
 class PNDM(Scheduler):
     name = "pndm"
 
-    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int):
+    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int,
+                    start_index: int = 0):
+        """``start_index`` > 0 enters the schedule mid-way (img2img): the
+        ``start_index`` highest timesteps are dropped and the PLMS warm-up
+        replays at the truncated head, since a multistep history is valid
+        only from steps that ran."""
         if cfg.prediction_type != "epsilon":
             raise ValueError(
                 f"pndm combines epsilon predictions and cannot serve "
@@ -47,6 +52,7 @@ class PNDM(Scheduler):
         ratio = cfg.num_train_timesteps // num_inference_steps
         base = (np.arange(num_inference_steps) * ratio).round() \
             .astype(np.int64) + cfg.steps_offset
+        base = base[:num_inference_steps - start_index]
         # descending with the second entry duplicated (PLMS warm-up)
         ts = np.concatenate([base[:-1], base[-2:-1], base[-1:]])[::-1].copy()
         L = len(ts)

@@ -32,7 +32,11 @@ def _bh2_b01(hh: float):
 class UniPC(Scheduler):
     name = "unipc"
 
-    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int):
+    def make_tables(self, cfg: SchedulerConfig, num_inference_steps: int,
+                    start_index: int = 0):
+        """``start_index`` > 0 truncates the grid and restarts the order
+        ramp at the entry (predictor at order 1, corrector off until there
+        is history), as img2img's mid-schedule entry needs."""
         check_num_steps(cfg, num_inference_steps + 1)
         acp = alphas_cumprod_for(cfg)
         n = cfg.num_train_timesteps
@@ -44,6 +48,7 @@ class UniPC(Scheduler):
             ratio = n // (num_inference_steps + 1)
             ts = ((np.arange(0, num_inference_steps + 1) * ratio)
                   .round()[::-1][:-1].astype(np.int64)) + cfg.steps_offset
+        ts = ts[start_index:]
 
         alpha = np.sqrt(acp)
         sigma = np.sqrt(1.0 - acp)

@@ -6,10 +6,11 @@ built on the meta device and materialised by ``weights.load_state_dict``, so
 a full-size bundle never holds a second, default-initialised copy of its
 weights.  The repository holds no checkpoint, so both constructors draw
 random weights from a numpy seed.  A bundle may carry the TAESD tiny decoder
-beside the KL decoder (``with_taesd``).  Families: SD 1.x, SD 2.x (OpenCLIP-H,
-64-channel heads; the 768-v point predicts v) and SDXL-base (a second text
+beside the KL one (``with_taesd``).  Families: SD 1.x, SD 2.x (OpenCLIP-H,
+64-channel heads; the 768-v point predicts v), SDXL-base (a second text
 tower, OpenCLIP-bigG, whose projected pooled output feeds the UNet's
-text_time conditioning; ``is_xl``).
+text_time conditioning; ``is_xl``) and the SDXL refiner (bigG alone, 5
+text_time ids; ``refiner``).
 """
 
 from __future__ import annotations
@@ -91,16 +92,17 @@ class SDModels:
     def with_taesd(self, config: TAESDConfig,
                    state_dict: dict) -> "SDModels":
         """Bundle copy with TAESD attached, from a diffusers
-        ``AutoencoderTiny`` state dict (``decoder.layers.*``; encoder keys
-        are dropped), on the UNet's device and in its dtype.  The tiny
-        decoder's pixel factor must be the KL decoder's, or latents would
-        decode to another size."""
+        ``AutoencoderTiny`` state dict (``decoder.layers.*``, and the
+        encoder too when the dict has ``encoder.layers.*``), on the UNet's
+        device and in its dtype.  The tiny autoencoder's pixel factor must
+        be the KL one's, or latents would decode to another size."""
         if config.scale_factor != self.vae_scale_factor:
             raise ValueError(
                 f"TAESD pixel factor {config.scale_factor}x does not match "
                 f"the bundle VAE's {self.vae_scale_factor}x")
+        encoder = any(k.startswith("encoder.") for k in state_dict)
         with torch.device("meta"):
-            taesd = AutoencoderTiny(config)
+            taesd = AutoencoderTiny(config, encoder=encoder)
         load_state_dict(taesd, state_dict, self.dtype)
         taesd.eval().requires_grad_(False).to(self.unet.conv_in.weight.device)
         return dataclasses.replace(self, taesd=taesd)
@@ -114,9 +116,9 @@ class SDModels:
               ) -> "SDModels":
         """Modules of the given geometry with every weight drawn N(0, std)
         from numpy seeds ``seed``, ``seed + 1``, ``seed + 2`` (and the
-        TAESD decoder's, if a config is given, from ``seed + 3``; the second
-        text tower's, if one is given, from ``seed + 4``), each cast to
-        ``dtype`` as it is drawn."""
+        TAESD decoder's and then encoder's, if a config is given, from
+        ``seed + 3``; the second text tower's, if one is given, from
+        ``seed + 4``), each cast to ``dtype`` as it is drawn."""
         configs = [unet_config, vae_config, text_config]
         builders = [UNet2DCondition, AutoencoderKL, CLIPTextEncoder]
         seeds = [seed, seed + 1, seed + 2]
@@ -142,7 +144,7 @@ class SDModels:
         if taesd_config is None:
             return models
         with torch.device("meta"):
-            shapes = AutoencoderTiny(taesd_config)
+            shapes = AutoencoderTiny(taesd_config, encoder=True)
         return models.with_taesd(
             taesd_config, random_state_dict(shapes, seed + 3, std, dtype))
 
@@ -165,17 +167,27 @@ class SDModels:
                          text_config_2=CLIPTextConfig.tiny_xl_g())
 
     @classmethod
+    def tiny_refiner(cls, seed: int = 0) -> "SDModels":
+        """Tiny fp32 SDXL-refiner-shaped bundle: the 16-wide projected
+        tower alone (``refiner``) and ``UNetConfig.tiny_refiner``."""
+        return cls.refiner(cls.build(
+            UNetConfig.tiny_refiner(), VAEConfig.tiny(),
+            CLIPTextConfig.tiny_xl_g(), seed, 0.1, torch.float32))
+
+    @classmethod
     def random(cls, family: str = "sd1", seed: int = 1,
                dtype: torch.dtype = torch.bfloat16,
                taesd: bool = False) -> "SDModels":
         """A family's published geometry with weights drawn N(0, 0.02):
-        "sd1" (CLIP-L, the 860M UNet, the KL decoder), "sd2" (SD 2.1 768-v:
-        OpenCLIP-H, the UNet at 96² latents, SD 1.x's VAE, a v-prediction
-        scheduler config) or "sdxl" (SDXL-base 1.0: CLIP-L and
-        OpenCLIP-bigG, the 2.6B UNet at 128² latents, the SDXL VAE); with
-        ``taesd`` the TAESD decoder at its published geometry too.  The
-        0.02 is load-bearing in bf16: unit-scale weights overflow the UNet's
-        residual sums within a few blocks."""
+        "sd1" (CLIP-L, the 860M UNet, the KL autoencoder), "sd2" (SD 2.1
+        768-v: OpenCLIP-H, the UNet at 96² latents, SD 1.x's VAE, a
+        v-prediction scheduler config), "sdxl" (SDXL-base 1.0: CLIP-L and
+        OpenCLIP-bigG, the 2.6B UNet at 128² latents, the SDXL VAE) or
+        "sdxl_refiner" (SDXL-refiner 1.0: OpenCLIP-bigG alone, the 2.3B
+        refiner UNet, the SDXL VAE); with ``taesd`` the TAESD decoder and
+        encoder at their published geometry too.  The 0.02 is load-bearing
+        in bf16: unit-scale weights overflow the UNet's residual sums
+        within a few blocks."""
         taesd_config = TAESDConfig.sd() if taesd else None
         if family == "sd1":
             return cls.build(UNetConfig.sd_v1(), VAEConfig.sd_v1(),
@@ -191,5 +203,23 @@ class SDModels:
                              CLIPTextConfig.sd_xl_l(), seed, 0.02, dtype,
                              taesd_config,
                              text_config_2=CLIPTextConfig.sd_xl_g())
+        if family == "sdxl_refiner":
+            return cls.refiner(cls.build(
+                UNetConfig.sd_xl_refiner(), VAEConfig.sd_xl(),
+                CLIPTextConfig.sd_xl_g(), seed, 0.02, dtype, taesd_config))
         raise ValueError(f"unknown model family {family!r}; the port has "
-                         "'sd1', 'sd2' and 'sdxl'")
+                         "'sd1', 'sd2', 'sdxl' and 'sdxl_refiner'")
+
+    @classmethod
+    def refiner(cls, models: "SDModels") -> "SDModels":
+        """The SDXL refiner's layout from a bundle whose primary tower is
+        OpenCLIP-bigG: that tower is also ``text_encoder_2`` (the same
+        module; the JAX package's loader gives a refiner
+        ``text_config == text_config_2``), the source of the context (the
+        UNet's 1280-wide ``cross_attention_dim``) and of the pooled
+        embedding; its tokenizer pads with 0."""
+        tok = HashTokenizer(vocab_size=models.text_config.vocab_size,
+                            pad_token_id=0)
+        return dataclasses.replace(
+            models, tokenizer=tok, text_config_2=models.text_config,
+            text_encoder_2=models.text_encoder, tokenizer_2=tok)

@@ -94,13 +94,19 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Stride-2 conv with symmetric padding (the UNet's form)."""
+    """Stride-2 3x3 conv.  The UNet pads (1, 1) on both axes; the VAE
+    encoder (``asymmetric``) pads (0, 1): the same output shape, other
+    taps."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, asymmetric: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        self.asymmetric = asymmetric
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+                              padding=0 if asymmetric else 1)
 
     def forward(self, x):
+        if self.asymmetric:
+            x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
 
 

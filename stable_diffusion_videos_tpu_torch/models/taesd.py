@@ -1,16 +1,17 @@
-"""TAESD tiny decoder (Bohan 2023, github.com/madebyollin/taesd), PyTorch
-NCHW.
+"""TAESD tiny autoencoder (Bohan 2023, github.com/madebyollin/taesd),
+PyTorch NCHW.
 
-Counterpart of the decoder half of ``stable_diffusion_videos_tpu/models/
-taesd.py``, with the module names of diffusers' ``AutoencoderTiny``:
-``decoder.layers`` is one ``nn.Sequential`` whose index 0 is conv_in, so a
-diffusers state dict loads without renaming (the upstream checkpoints put a
-parameter-free Clamp at index 0 and conv_in at 1; their indices are one
-higher).  The decoder takes the sampler's scaled latents and emits images
-in [0, 1] (upstream's convention; diffusers maps them to [-1, 1]).  There
-is no normalisation and no attention: 3x3 convolutions, ReLU and nearest
-2x upsampling only.  The encoder serves the edit paths and is not ported
-yet (``SKIPPED_PREFIXES``).
+Counterpart of ``stable_diffusion_videos_tpu/models/taesd.py``, with the
+module names of diffusers' ``AutoencoderTiny``: ``decoder.layers`` and
+``encoder.layers`` are one ``nn.Sequential`` each, whose index 0 is
+conv_in, so a diffusers state dict loads without renaming (the upstream
+decoder checkpoints put a parameter-free Clamp at index 0 and conv_in at 1;
+their decoder indices are one higher, their encoder's the same).  The
+decoder takes the sampler's scaled latents and emits images in [0, 1]; the
+encoder takes [0, 1] images and emits scaled latents (upstream's
+convention; diffusers maps both image ranges to [-1, 1]).  There is no
+normalisation and no attention: 3x3 convolutions, ReLU, stride-2
+convolutions padded (1, 1) and nearest 2x upsampling only.
 """
 
 from __future__ import annotations
@@ -85,15 +86,34 @@ class TAESDDecoder(nn.Module):
         return self.layers(torch.tanh(z / 3.0) * 3.0)
 
 
+class TAESDEncoder(nn.Module):
+    """[0, 1] image (B, 3, H, W) -> scaled latents (B, 4, H/f, W/f)."""
+
+    def __init__(self, cfg: TAESDConfig):
+        super().__init__()
+        layers = [_conv(cfg.image_channels, cfg.width),
+                  TAESDBlock(cfg.width)]
+        for _ in range(cfg.num_stages):
+            layers.append(nn.Conv2d(cfg.width, cfg.width, 3, stride=2,
+                                    padding=1, bias=False))
+            layers += [TAESDBlock(cfg.width)
+                       for _ in range(cfg.blocks_per_stage)]
+        layers.append(_conv(cfg.width, cfg.latent_channels))
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.layers(x)
+
+
 class AutoencoderTiny(nn.Module):
-    """``decoder`` under diffusers' names; the encoder is not ported."""
+    """``decoder``, and with ``encoder=True`` the ``encoder`` too, under
+    diffusers' names."""
 
-    SKIPPED_PREFIXES = ("encoder.",)
-
-    def __init__(self, config: TAESDConfig):
+    def __init__(self, config: TAESDConfig, encoder: bool = False):
         super().__init__()
         self.config = config
         self.decoder = TAESDDecoder(config)
+        self.encoder = TAESDEncoder(config) if encoder else None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -103,3 +123,10 @@ class AutoencoderTiny(nn.Module):
         """Scaled latents (B, 4, h, w) -> image in [0, 1] (before the
         caller's clip), in the module's dtype."""
         return self.decoder(z.to(self.dtype))
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[0, 1] image (B, 3, H, W) -> scaled latents, in the module's
+        dtype."""
+        if self.encoder is None:
+            raise ValueError("this TAESD carries no encoder weights")
+        return self.encoder(x.to(self.dtype))

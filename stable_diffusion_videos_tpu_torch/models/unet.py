@@ -1,5 +1,5 @@
-"""UNet2DCondition — the noise predictor of SD 1.x, SD 2.x and SDXL-base,
-PyTorch NCHW.
+"""UNet2DCondition — the noise predictor of SD 1.x, SD 2.x, SDXL-base and
+the SDXL refiner, PyTorch NCHW.
 
 Counterpart of ``stable_diffusion_videos_tpu/models/unet.py``: conv_in,
 sinusoidal+MLP time embedding (plus SDXL's "text_time" addition embedding:
@@ -48,7 +48,8 @@ class UNetConfig:
     #: MLP (SDXL: 1280, the OpenCLIP-bigG tower's projection)
     addition_pooled_dim: Optional[int] = None
     #: number of size/crop ids: 6 for SDXL-base (orig_h, orig_w, crop_t,
-    #: crop_l, target_h, target_w)
+    #: crop_l, target_h, target_w), 5 for the refiner (the aesthetic score
+    #: in place of the target size)
     addition_num_ids: int = 6
 
     def heads(self, level: int) -> int:
@@ -86,6 +87,22 @@ class UNetConfig:
                    addition_embed_dim=256, addition_pooled_dim=1280)
 
     @classmethod
+    def sd_xl_refiner(cls):
+        """SDXL-refiner 1.0 geometry: 4 levels at (384, 768, 1536, 1536),
+        attention at the middle two and the mid block, 64-channel heads,
+        depth 4 (the published ``transformer_layers_per_block`` is the int
+        4, so the mid block has 4 layers too; the JAX package's
+        constructor gives it 0), the bigG-only context (1280) and 5
+        text_time ids (the aesthetic score in place of the target size:
+        1280 + 5·256 = 2560 into the MLP)."""
+        return cls(sample_size=128, block_out_channels=(384, 768, 1536, 1536),
+                   cross_attention_dim=1280,
+                   attention_head_dim=(6, 12, 24, 24),
+                   attn_levels=(False, True, True, False),
+                   transformer_depth=4, addition_embed_dim=256,
+                   addition_pooled_dim=1280, addition_num_ids=5)
+
+    @classmethod
     def tiny(cls):
         """CPU-runnable config for tests; same code paths."""
         return cls(sample_size=8, block_out_channels=(32, 64),
@@ -101,6 +118,17 @@ class UNetConfig:
                    attention_head_dim=2, attn_levels=(False, True),
                    transformer_depth=(0, 2),
                    addition_embed_dim=8, addition_pooled_dim=16)
+
+    @classmethod
+    def tiny_refiner(cls):
+        """CPU-runnable refiner-shaped config: the deepest level without
+        attention but a transformer in the mid block (the depth tuple's
+        last entry), a 16-wide bigG-only context and 5 text_time ids."""
+        return cls(sample_size=8, block_out_channels=(32, 64, 64),
+                   layers_per_block=1, cross_attention_dim=16,
+                   attention_head_dim=2, attn_levels=(False, True, False),
+                   transformer_depth=(0, 1, 1), addition_embed_dim=8,
+                   addition_pooled_dim=16, addition_num_ids=5)
 
 
 class UNetBlock(nn.Module):

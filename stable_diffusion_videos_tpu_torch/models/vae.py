@@ -1,9 +1,10 @@
-"""AutoencoderKL decode path — latents to images, PyTorch NCHW.
+"""AutoencoderKL — images to latents and back, PyTorch NCHW.
 
 Counterpart of ``stable_diffusion_videos_tpu/models/vae.py``: the
-``post_quant_conv`` and the ``Decoder`` (diffusers names ``decoder.*``).  The
-encoder and ``quant_conv`` wait for the img2img paths, so their weights are
-left out when a state dict is loaded (``SKIPPED_PREFIXES``).
+``Encoder`` and ``quant_conv`` (``encode``: the posterior's mean and its
+log-variance clipped to [-30, 20]), the ``post_quant_conv`` and the
+``Decoder``, under diffusers names (``encoder.*``, ``decoder.*``).  The
+encoder's downsamplers pad (0, 1), diffusers' ``padding=0`` form.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from .layers import GroupNorm32, ResnetBlock2D, Upsample2D, VAEAttnBlock
+from .layers import (Downsample2D, GroupNorm32, ResnetBlock2D, Upsample2D,
+                     VAEAttnBlock)
 from .unet import UNetBlock
 
 SD_LATENT_SCALE = 0.18215
@@ -47,6 +49,44 @@ class VAEConfig:
     @classmethod
     def tiny(cls):
         return cls(block_out_channels=(32, 64), layers_per_block=1)
+
+
+class Encoder(nn.Module):
+    """Image (B, 3, H, W) in [-1, 1] -> moments (B, 2·latent, H/f, W/f)."""
+
+    def __init__(self, config: VAEConfig):
+        super().__init__()
+        chans = config.block_out_channels
+        n = len(chans)
+        ch = chans[0]
+        self.conv_in = nn.Conv2d(config.in_channels, ch, 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        for level, out_ch in enumerate(chans):
+            resnets = []
+            for _ in range(config.layers_per_block):
+                resnets.append(ResnetBlock2D(ch, out_ch, eps=1e-6))
+                ch = out_ch
+            down = (Downsample2D(ch, asymmetric=True) if level != n - 1
+                    else None)
+            self.down_blocks.append(UNetBlock(resnets, downsample=down))
+        self.mid_block = UNetBlock(
+            [ResnetBlock2D(ch, ch, eps=1e-6), ResnetBlock2D(ch, ch, eps=1e-6)],
+            [VAEAttnBlock(ch)])
+        self.conv_norm_out = GroupNorm32(ch, 32, eps=1e-6)
+        self.conv_out = nn.Conv2d(ch, 2 * config.latent_channels, 3,
+                                  padding=1)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for blk in self.down_blocks:
+            for res in blk.resnets:
+                x = res(x)
+            if hasattr(blk, "downsamplers"):
+                x = blk.downsamplers[0](x)
+        x = self.mid_block.resnets[0](x)
+        x = self.mid_block.attentions[0](x)
+        x = self.mid_block.resnets[1](x)
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -85,21 +125,29 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """``post_quant_conv`` + ``Decoder``."""
-
-    #: diffusers keys of the parts this slice does not port
-    SKIPPED_PREFIXES = ("encoder.", "quant_conv.")
+    """``Encoder`` + ``quant_conv``, ``post_quant_conv`` + ``Decoder``."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
         self.config = config
+        self.encoder = Encoder(config)
         self.decoder = Decoder(config)
+        self.quant_conv = nn.Conv2d(2 * config.latent_channels,
+                                    2 * config.latent_channels, 1)
         self.post_quant_conv = nn.Conv2d(config.latent_channels,
                                          config.latent_channels, 1)
 
     @property
     def dtype(self) -> torch.dtype:
         return self.post_quant_conv.weight.dtype
+
+    def encode(self, x: torch.Tensor) -> tuple:
+        """Image (B, 3, H, W) in [-1, 1] -> (mean, logvar) of the latent
+        posterior, each (B, 4, H/f, W/f) in the module's dtype (unscaled:
+        the caller multiplies the mean by the scaling factor)."""
+        moments = self.quant_conv(self.encoder(x.to(self.dtype)))
+        mean, logvar = moments.chunk(2, dim=1)
+        return mean, logvar.clamp(-30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents (B, 4, h, w), already divided by the scaling factor ->

@@ -8,12 +8,11 @@
   that module imports jax: conv HWIO -> OIHW, dense (in, out) -> (out, in),
   norm scale -> weight, ``to_out`` -> ``to_out.0``, ``ff.proj_in`` ->
   ``ff.net.0.proj``.  SDXL's ``add_embedding`` and the projected tower's
-  ``text_projection`` map by the same rules.  The TAESD decoder's tree maps
-  to diffusers ``AutoencoderTiny`` names (``decoder.layers.N``, conv_in
-  at 0).
+  ``text_projection`` map by the same rules.  The TAESD decoder's and
+  encoder's trees map to diffusers ``AutoencoderTiny`` names
+  (``decoder.layers.N`` and ``encoder.layers.N``, conv_in at 0).
 * ``load_state_dict(module, state_dict)`` loads diffusers-named numpy arrays,
-  strict about missing and unexpected keys within the module (keys of parts
-  the slice does not port, ``SKIPPED_PREFIXES``, are dropped).  A
+  strict about missing and unexpected keys.  A
   transformer's ``proj_in``/``proj_out`` loads from either layout diffusers
   writes: the 1×1 convolution's ``(C, C, 1, 1)`` (SD 1.x) or the Linear's
   ``(C, C)`` (SD 2.x and SDXL, ``use_linear_projection``).
@@ -185,7 +184,22 @@ def _taesd_block(p, pfx, out):
 
 def _taesd(p, config: TAESDConfig, out):
     """The decoder's Sequential: conv_in, ReLU, [blocks, Upsample, conv] a
-    stage, block_out, conv_out."""
+    stage, block_out, conv_out; or the encoder's (its tree has
+    ``block_in``): conv_in, block_in, [stride-2 conv, blocks] a stage,
+    conv_out."""
+    if "block_in" in p:
+        _conv(p["conv_in"], "encoder.layers.0", out)
+        _taesd_block(p["block_in"], "encoder.layers.1", out)
+        i = 2
+        for s in range(config.num_stages):
+            _conv(p[f"down_{s}_conv"], f"encoder.layers.{i}", out)
+            i += 1
+            for j in range(config.blocks_per_stage):
+                _taesd_block(p[f"down_{s}_block_{j}"],
+                             f"encoder.layers.{i}", out)
+                i += 1
+        _conv(p["conv_out"], f"encoder.layers.{i}", out)
+        return
     _conv(p["conv_in"], "decoder.layers.0", out)
     i = 2
     for s in range(config.num_stages):
@@ -204,8 +218,8 @@ _MAPPINGS = {UNetConfig: _unet, VAEConfig: _vae, CLIPTextConfig: _text,
 
 def from_jax_params(tree: dict, config) -> dict[str, np.ndarray]:
     """JAX flax variables ``{"params": ...}`` of a UNet, VAE, CLIP text
-    encoder or TAESD decoder -> the diffusers-named state dict, chosen by
-    the config's type."""
+    encoder or TAESD decoder or encoder -> the diffusers-named state dict,
+    chosen by the config's type."""
     out: dict[str, np.ndarray] = {}
     _MAPPINGS[type(config)](tree["params"], config, out)
     return out
@@ -219,12 +233,10 @@ _LINEAR_PROJECTIONS = (".proj_in.weight", ".proj_out.weight")
 def load_state_dict(module: nn.Module, state_dict: dict,
                     dtype: torch.dtype | None = None) -> nn.Module:
     """Fill ``module`` from diffusers-named arrays (numpy or torch), in
-    ``dtype`` (default: the module's current dtype).  Keys under the
-    module's ``SKIPPED_PREFIXES`` are dropped; any other missing or
+    ``dtype`` (default: the module's current dtype).  A missing or
     unexpected key, or a shape that differs, raises.  The tensors are
     assigned, so a module built on the meta device is materialised here."""
-    skipped = getattr(module, "SKIPPED_PREFIXES", ())
-    sd = {k: v for k, v in state_dict.items() if not k.startswith(skipped)}
+    sd = state_dict
     own = module.state_dict()
     missing, unexpected = sorted(own.keys() - sd), sorted(sd.keys() - own)
     if missing or unexpected:

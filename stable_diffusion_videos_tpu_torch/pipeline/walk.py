@@ -17,9 +17,16 @@ CFG and the ``fast`` preset that combines them, every sampler of the JAX
 package, and frozen transition noise.  Each dispatch of a stochastic
 sampler draws its noise from a ``torch.Generator`` seeded from both clip
 seeds and the batch index, or under ``frozen_noise`` from one video-level
-seed.  Options of the JAX pipeline this port does not have yet
-(upsampling, the safety checker, FreeU, ToMe, prompt weighting, ControlNet,
-IP-Adapter, the edit paths) raise when they are asked for.
+seed.
+
+The edit paths: ``img2img``, ``inpaint`` (the mask taken to latent size by
+nearest-exact sampling, pixel ``f·i + f/2``, as the JAX package's
+``jax.image.resize(..., "nearest")``) and ``vid2vid`` (batched img2img
+over a video's frames with one shared re-noising field, or per-frame fields
+keyed by the absolute frame index under ``frozen_noise``, and an optional
+causal EMA of the source latents).  Options of the JAX pipeline this port
+does not have yet (upsampling, the safety checker, FreeU, ToMe, prompt
+weighting, ControlNet, IP-Adapter) raise when they are asked for.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from ..audio.analysis import get_timesteps_arr, load_audio
 from ..core.interp import lerp, slerp
 from ..core.rng import noise_for_seed
 from ..media.png import write_png
-from ..media.video import FrameWriter, iter_frames
+from ..media.video import (FrameWriter, iter_frames, probe_video,
+                           read_video_frames)
 from ..media.video import make_video as assemble
 from ..models.bundle import SDModels
 from ..runtime.engine import Engine, refuse_unported
@@ -53,6 +61,11 @@ _FRAMES_UNPORTED = ("upsample", "upsample_weights", "control_image",
                     "ip_image")
 _WALK_UNPORTED = ("upsample", "upsample_weights", "control_image",
                   "ip_image", "params", "jit")
+_IMG2IMG_UNPORTED = ("control_image", "controlnet_scale", "ip_image",
+                     "ip_scale")
+_VID2VID_UNPORTED = ("control_video", "controlnet_scale",
+                     "control_from_source", "canny_thresholds", "ip_image",
+                     "ip_scale")
 
 
 def dispatch_seed(seed_a: int, seed_b: int, batch_idx: int) -> int:
@@ -62,6 +75,49 @@ def dispatch_seed(seed_a: int, seed_b: int, batch_idx: int) -> int:
     return int(np.random.SeedSequence(
         [int(seed_a) & mask, int(seed_b) & mask, int(batch_idx)])
         .generate_state(1, np.uint64)[0])
+
+
+def frame_noise_seed(seed: int, frame_index: int) -> int:
+    """vid2vid's per-frame re-noising seed under ``frozen_noise``: a
+    function of the video's seed and the frame's absolute index only, so
+    a frame's noise does not depend on how frames split into batches."""
+    return dispatch_seed(int(seed) * 9973 + 1, frame_index, 0)
+
+
+def image_array(image) -> np.ndarray:
+    """PIL image or (H, W, 3) / (B, H, W, 3) array (uint8, or floats in
+    [0, 1]) -> float32 (B, H, W, 3) in [0, 1]."""
+    from PIL import Image
+    if isinstance(image, Image.Image):
+        arr = np.asarray(image.convert("RGB"), np.float32) / 255.0
+    else:
+        raw = np.asarray(image)
+        arr = raw.astype(np.float32)
+        if raw.dtype == np.uint8 or arr.max() > 1.5:
+            arr = arr / 255.0
+    return arr[None] if arr.ndim == 3 else arr
+
+
+def latent_mask(mask, lh: int, lw: int) -> torch.Tensor:
+    """A pixel mask (PIL L/RGB, or (H, W) uint8 or [0, 1]) -> (lh, lw)
+    float32 at latent size, by nearest-exact sampling (pixel
+    floor((i + 0.5)·H/lh), as ``jax.image.resize(..., "nearest")``)."""
+    from PIL import Image
+    if isinstance(mask, Image.Image):
+        m = np.asarray(mask.convert("L"), np.float32) / 255.0
+    else:
+        m = np.asarray(mask, np.float32)
+        if m.max() > 1.5:
+            m = m / 255.0
+    return torch.nn.functional.interpolate(
+        torch.from_numpy(np.ascontiguousarray(m))[None, None],
+        size=(lh, lw), mode="nearest-exact")[0, 0]
+
+
+def to_pil(frames: np.ndarray) -> list:
+    """uint8 (B, H, W, 3) -> PIL images."""
+    from PIL import Image
+    return [Image.fromarray(f) for f in frames]
 
 
 class StableDiffusionWalkPipeline:
@@ -232,6 +288,213 @@ class StableDiffusionWalkPipeline:
                 drain(pool, pending)
             for f in save_futures:
                 f.result()  # surface any save error
+
+    # ------------------------------------------------------------------
+    # the edit paths
+    # ------------------------------------------------------------------
+    def _cond_uncond(self, prompt: str, negative_prompt, batch: int) -> dict:
+        """The engine's text arguments for ``batch`` rows of one prompt:
+        cond, uncond and, for SDXL, the pooled pair."""
+        neg = negative_prompt or ""
+        cond = self.engine.embed_text(prompt)
+        out = dict(cond=cond.expand((batch,) + tuple(cond.shape[1:])),
+                   uncond=self.engine.embed_text(neg))
+        if self.models.is_xl:
+            pooled = self.engine.embed_text_pooled(prompt)
+            out.update(pooled=pooled.expand(
+                (batch,) + tuple(pooled.shape[1:])),
+                uncond_pooled=self.engine.embed_text_pooled(neg))
+        return out
+
+    def img2img(self, image, prompt: str, strength: float = 0.75,
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                eta: float = 0.0, negative_prompt: Optional[str] = None,
+                seed: int = 0, output_type: str = "pil", **unported):
+        """Image-to-image: encode ``image`` (PIL, or (H, W, 3) / (B, H, W,
+        3) uint8 or [0, 1]), re-noise it to ``strength`` of the schedule
+        and denoise toward ``prompt``.  -> PIL images, or with another
+        ``output_type`` float32 (B, H, W, 3) frames in [0, 1]."""
+        refuse_unported("img2img", _IMG2IMG_UNPORTED, unported)
+        arr = image_array(image)
+        latents = self.engine.encode_image(arr * 2.0 - 1.0)
+        images = self.engine.img2img(
+            init_latents=latents, strength=strength,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, eta=eta,
+            generator=torch.Generator(self.device).manual_seed(int(seed)),
+            output_dtype="uint8" if output_type == "pil" else "float32",
+            **self._cond_uncond(prompt, negative_prompt, len(arr)))
+        return to_pil(images) if output_type == "pil" else images
+
+    def inpaint(self, image, mask, prompt: str,
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                negative_prompt: Optional[str] = None, seed: int = 0,
+                output_type: str = "pil"):
+        """Masked regeneration: ``mask`` 1 (white) is regenerated from
+        ``prompt``, 0 (black) keeps ``image``; any sampler (see
+        ``Engine.inpaint``).  -> PIL images, or float32 frames."""
+        arr = image_array(image)
+        latents = self.engine.encode_image(arr * 2.0 - 1.0)
+        B, lh, lw, _ = latents.shape
+        m = latent_mask(mask, lh, lw)[None, :, :, None].expand(B, lh, lw, 1)
+        images = self.engine.inpaint(
+            init_latents=latents, mask=m,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale,
+            generator=torch.Generator(self.device).manual_seed(int(seed)),
+            output_dtype="uint8" if output_type == "pil" else "float32",
+            **self._cond_uncond(prompt, negative_prompt, B))
+        return to_pil(images) if output_type == "pil" else images
+
+    def vid2vid(self, video, prompt: str, *, strength: float = 0.5,
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                negative_prompt: Optional[str] = None, seed: int = 0,
+                height: Optional[int] = None, width: Optional[int] = None,
+                fps: Optional[float] = None,
+                batch_size: Optional[int] = None, frame_skip: int = 1,
+                max_frames: Optional[int] = None,
+                output_filepath: str = "vid2vid.mp4",
+                audio_filepath: Optional[str] = None,
+                shared_noise: bool = True, latent_ema: float = 0.0,
+                output_type: str = "video", **unported):
+        """Video-to-video restyling: batched img2img over the frames of
+        ``video`` (a video file, read by ``read_video_frames``; a directory
+        of PNG frames; a (T, H, W, 3) array; or any iterable of frames),
+        each frame re-noised to ``strength`` and denoised toward
+        ``prompt``.
+
+        Frames are resized to ``height`` x ``width``, by default the
+        source's sides snapped down to a multiple of 8·f.  ``frame_skip``
+        keeps every k-th frame and ``max_frames`` stops after that many.
+        ``shared_noise``: one re-noising field for the whole video (the
+        field does not flicker frame to frame); without it, under the
+        engine's ``frozen_noise``, a field a frame keyed by its absolute
+        index (``frame_noise_seed``), else draws from each dispatch's
+        generator.  The dispatch generator's seed is ``seed·9973``, plus
+        the first frame's index unless under ``frozen_noise`` (one
+        transition field for the whole video).  ``latent_ema`` in [0, 1):
+        a causal EMA of the source latents across frames and batches
+        (z̃_i = (1 - a)·z_i + a·z̃_{i-1}) before re-noising.
+        ``output_type``: "video" (writes ``output_filepath``, with
+        ``audio_filepath`` muxed, and returns its path) or "frames" (PIL
+        images).  An abort closes and deletes the half-written video."""
+        refuse_unported("vid2vid", _VID2VID_UNPORTED, unported)
+        if not 0.0 <= latent_ema < 1.0:
+            raise ValueError("latent_ema must be in [0, 1)")
+        batch_size = batch_size or self.models.default_batch_size
+        grain = self.models.vae_scale_factor * 8
+
+        def snap(n):
+            return max(grain, (int(n) // grain) * grain)
+
+        src_fps = None
+        if isinstance(video, (str, Path)) and Path(video).is_file():
+            info = probe_video(video)
+            src_fps = info.get("fps") or None
+            height = height or snap(info["height"])
+            width = width or snap(info["width"])
+            frames = read_video_frames(video, size=(height, width),
+                                       frame_skip=frame_skip,
+                                       max_frames=max_frames)
+        else:
+            base = (iter_frames(video)
+                    if isinstance(video, (str, Path, np.ndarray))
+                    else iter(video))
+
+            def prepared():
+                n = 0
+                for i, fr in enumerate(base):
+                    if i % frame_skip:
+                        continue
+                    yield fr
+                    n += 1
+                    if max_frames is not None and n >= max_frames:
+                        return
+            frames = prepared()
+        fps = fps or src_fps or 30.0
+        audio, sr = None, 22050
+        if audio_filepath:
+            audio, sr = load_audio(audio_filepath, sr=sr)
+
+        args, noise, writer, ema = None, None, None, None
+        out_frames: list = []
+        frame_idx = 0
+        c = self.models.unet_config.in_channels
+
+        def flush(batch):
+            nonlocal args, noise, writer, frame_idx, ema
+            B = len(batch)
+            arr = np.stack(batch).astype(np.float32) / 255.0
+            if args is None or args["cond"].shape[0] != B:
+                args = self._cond_uncond(prompt, negative_prompt, B)
+            latents = self.engine.encode_image(arr * 2.0 - 1.0)
+            if latent_ema > 0.0:
+                for j in range(B):
+                    ema = latents[j] if ema is None else (
+                        (1.0 - latent_ema) * latents[j] + latent_ema * ema)
+                    latents[j] = ema
+            _, lh, lw, _ = latents.shape
+            if shared_noise and noise is None:
+                noise = self.init_noise(seed, (1, lh, lw, c))
+            batch_noise = noise
+            if batch_noise is None and self.engine.frozen_noise:
+                batch_noise = torch.cat([
+                    self.init_noise(frame_noise_seed(seed, frame_idx + j),
+                                    (1, lh, lw, c)) for j in range(B)])
+            key = int(seed) * 9973 + (0 if self.engine.frozen_noise
+                                      else frame_idx)
+            images = self.engine.img2img(
+                init_latents=latents, strength=strength,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale,
+                generator=torch.Generator(self.device).manual_seed(key),
+                noise=batch_noise, output_dtype="uint8", **args)
+            for img in images:
+                if output_type == "frames":
+                    out_frames.append(img)
+                    continue
+                if writer is None:
+                    writer = FrameWriter(output_filepath, fps=float(fps),
+                                         audio=audio, audio_sr=sr)
+                writer.add_frame(img)
+            frame_idx += B
+
+        batch: list = []
+        try:
+            for fr in frames:
+                fr = np.asarray(fr.convert("RGB") if hasattr(fr, "convert")
+                                else fr)
+                if fr.dtype != np.uint8:
+                    fr = ((np.clip(fr, 0.0, 1.0) * 255).round()
+                          .astype(np.uint8) if fr.max() <= 1.5
+                          else fr.astype(np.uint8))
+                fr = fr[..., :3]
+                if height is None or width is None:
+                    height = height or snap(fr.shape[0])
+                    width = width or snap(fr.shape[1])
+                if fr.shape[:2] != (height, width):
+                    from PIL import Image
+                    fr = np.asarray(Image.fromarray(
+                        np.ascontiguousarray(fr)).resize(
+                            (width, height), Image.BILINEAR))
+                batch.append(fr)
+                if len(batch) == batch_size:
+                    flush(batch)
+                    batch = []
+            if batch:
+                flush(batch)
+        except BaseException:
+            # an abort leaves no half-written container behind
+            if writer is not None:
+                with contextlib.suppress(Exception):
+                    writer.close()
+                Path(writer.output_filepath).unlink(missing_ok=True)
+            raise
+        if frame_idx == 0:
+            raise ValueError("video source yielded no frames")
+        if output_type == "frames":
+            return to_pil(np.stack(out_frames))
+        return writer.close()
 
     # ------------------------------------------------------------------
     # the product: walk()

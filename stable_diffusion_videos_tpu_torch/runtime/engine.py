@@ -18,6 +18,13 @@ embeddings and the size/crop time ids) beside the context, sliced to their
 cond half wherever the context is.  The boundary keeps the JAX package's
 layout: noise in ``(B, h, w, 4)``, frames out ``(B, H, W, 3)``.
 
+The edit paths: ``encode_image`` (the KL encoder's scaled mean, whole or in
+overlapping tiles blended on the device), ``img2img`` (the schedule entered
+mid-way: the warm-up samplers' tables rebuilt from the entry, the others'
+sliced on a copy) and ``inpaint`` (the known region put back at each step's
+post-step noise level).  The SDXL refiner conditions on its one tower
+(bigG) and takes 5 time ids with the aesthetic score.
+
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
 """
@@ -37,6 +44,13 @@ from ..models.bundle import SDModels
 
 #: JAX Engine options this port does not have yet
 UNPORTED = ("controlnet", "ip_adapter", "mesh", "spatial_shard", "debug")
+#: samplers whose tables carry a multistep warm-up: img2img rebuilds their
+#: tables from the entry index instead of slicing them
+WARMUP_SAMPLERS = ("pndm", "lms", "unipc")
+#: samplers whose latents live in sigma space (noised as x + sigma·noise)
+SIGMA_SAMPLERS = ("euler", "euler_ancestral", "lms")
+#: the refiner's aesthetic-score time id on the uncond and the cond rows
+REFINER_AESTHETIC = (2.5, 6.0)
 
 #: the stochastic samplers' noise source: a generator on the engine's
 #: device, or a callable ``(i, latents) -> field`` that replaces the draws
@@ -81,11 +95,10 @@ class Engine:
                  vae_tile: Optional[int] = None, vae_tile_overlap: int = 16,
                  **unported):
         refuse_unported("Engine", UNPORTED, unported)
-        if models.is_xl and models.unet_config.addition_num_ids != 6:
-            raise NotImplementedError(
-                "the SDXL refiner's text_time ids (addition_num_ids="
-                f"{models.unet_config.addition_num_ids}) belong to the "
-                "img2img stage, which the PyTorch package does not have yet")
+        if models.is_xl and models.unet_config.addition_num_ids not in (5, 6):
+            raise ValueError("text_time takes 6 ids (SDXL-base) or 5 (the "
+                             "refiner), got "
+                             f"{models.unet_config.addition_num_ids}")
         if tiny_decoder and models.taesd_decoder() is None:
             raise ValueError(
                 "tiny_decoder=True requires TAESD weights on the bundle: "
@@ -157,7 +170,8 @@ class Engine:
     # ------------------------------------------------------------------
     def embed_text(self, text) -> torch.Tensor:
         """Prompt(s) -> (B, 77, D) hidden states on the device.  For an SDXL
-        bundle D is the two towers' concatenation (768 + 1280), in fp32."""
+        bundle D is the two towers' concatenation (768 + 1280), in fp32;
+        for the refiner tower 2's alone (1280)."""
         return self._embed(text)[0]
 
     def embed_text_pooled(self, text) -> torch.Tensor:
@@ -172,8 +186,10 @@ class Engine:
     @torch.no_grad()
     def _embed(self, text) -> tuple:
         """Prompt(s) -> (hidden states, pooled output or None), cached.
-        With a second tower (SDXL-base) the towers' states concatenate; the
-        pooled output is tower 2's."""
+        With a second tower the pooled output is tower 2's, and the towers'
+        states concatenate where the UNet's context is as wide as both
+        (SDXL-base); otherwise (the refiner) tower 2's states alone are the
+        context."""
         key = (text,) if isinstance(text, str) else tuple(text)
         with self._lock:
             if key in self._embed_cache:
@@ -188,9 +204,14 @@ class Engine:
         if m.text_encoder_2 is None:
             out = (m.text_encoder(ids(m.tokenizer))[0], None)
         else:
-            h1 = m.text_encoder(ids(m.tokenizer))[0]
             h2, pooled = m.text_encoder_2(ids(m.tokenizer_2 or m.tokenizer))
-            out = (torch.cat([h1.float(), h2.float()], dim=-1), pooled)
+            dual = (m.unet_config.cross_attention_dim
+                    == m.text_config.hidden_size + m.text_config_2.hidden_size)
+            if dual:
+                h1 = m.text_encoder(ids(m.tokenizer))[0]
+                out = (torch.cat([h1.float(), h2.float()], dim=-1), pooled)
+            else:
+                out = (h2.float(), pooled)
         with self._lock:
             self._embed_cache[key] = out
             self._embed_cache.move_to_end(key)
@@ -212,15 +233,52 @@ class Engine:
     # the denoise program
     # ------------------------------------------------------------------
     def _tables(self, sched_name: str, sched, num_inference_steps: int,
-                eta: float):
+                eta: float, start_index: int = 0):
+        """The sampler's tables, cached by (name, steps, eta) and, for a
+        warm-up sampler's mid-schedule entry, ``start_index``.  Cached
+        tables are shared: nothing may change them in place."""
         key = (sched_name, num_inference_steps, float(eta))
+        if start_index:
+            key += (start_index,)
         with self._lock:
             if key not in self._tables_cache:
                 kwargs = {"eta": float(eta)} if sched_name == "ddim" else {}
+                if start_index:
+                    kwargs["start_index"] = start_index
                 self._tables_cache[key] = sched.make_tables(
                     self.models.scheduler_config, num_inference_steps,
                     **kwargs)
             return self._tables_cache[key]
+
+    def _entry_tables(self, sched_name: str, sched, num_inference_steps: int,
+                      eta: float, strength: float) -> tuple:
+        """img2img's schedule from ``strength``: -> (full tables, tables of
+        the steps that run, k0).  ``k0`` rounds half to even (Python's
+        ``round``), over the plain step count for the warm-up samplers,
+        whose tables are rebuilt from the entry (pndm's loop has one more
+        step than the schedule), and over the loop's steps for the others,
+        whose tables are sliced.  The tables that run are a new dict with
+        ``init_noise_sigma`` 1: the caller noises the latents itself."""
+        tables = self._tables(sched_name, sched, num_inference_steps, eta)
+        if sched_name in WARMUP_SAMPLERS:
+            k0 = min(num_inference_steps - 1,
+                     round(num_inference_steps * (1.0 - strength)))
+            run = dict(self._tables(sched_name, sched, num_inference_steps,
+                                    eta, start_index=k0))
+        else:
+            n_loop = sched.num_loop_steps(tables)
+            k0 = min(n_loop - 1, round(n_loop * (1.0 - strength)))
+            run = {k: (v[k0:] if isinstance(v, np.ndarray) and v.ndim
+                       and v.shape[0] in (n_loop, n_loop + 1) else v)
+                   for k, v in tables.items()}
+            if sched_name == "dpm":
+                # the first step that runs has no model-output history
+                run["first_order"] = run["first_order"].copy()
+                run["first_order"][0] = True
+                run["h0"] = run["h0"].copy()
+                run["h0"][0] = 1.0
+        run["init_noise_sigma"] = np.float32(1.0)
+        return tables, run, k0
 
     def _interval_segments(self, n_loop: int):
         """[(start, stop, cfg_on)] loop segments implementing
@@ -284,19 +342,27 @@ class Engine:
     def _decode_tiled(self, lat: torch.Tensor) -> torch.Tensor:
         """Scaled latents (B, 4, h, w) -> float32 (B, H, W, 3) frames,
         decoded in overlapping ``vae_tile`` latent tiles whose seams blend
-        with linear ramps.  Every tile is exactly ``vae_tile`` wide (the
-        last position clamps back), so the decoder runs at one shape; an
-        axis below one tile is decoded whole."""
-        tile, ov = self.vae_tile, self.vae_tile_overlap
+        with linear ramps (``_tiled``)."""
         b, _, h, w = lat.shape
-        if h <= tile and w <= tile:
+        if h <= self.vae_tile and w <= self.vae_tile:
             return self._decode(lat, out_u8=False)
-        f = self.models.vae_scale_factor
-        dev = lat.device
+        return self._tiled(lambda x: self._decode(x, out_u8=False), lat,
+                           h, w, 1, self.models.vae_scale_factor, 3)
 
-        def ramp(n_pix: int, lo_edge: bool, hi_edge: bool) -> torch.Tensor:
-            r = torch.ones(n_pix, device=dev)
-            e = ov * f
+    def _tiled(self, fn, x: torch.Tensor, h: int, w: int, s_in: int,
+               s_out: int, c_out: int) -> torch.Tensor:
+        """``fn`` over overlapping ``vae_tile`` tiles of a (B, C, h·s_in,
+        w·s_in) input, its (B, ·, ·, c_out) outputs blended at ``s_out``
+        times the latent grid with linear ramps over the overlap, on the
+        device.  Tiles sit on the latent grid (h, w); every tile is exactly
+        ``vae_tile`` wide (the last position clamps back), so ``fn`` runs at
+        one shape; an axis below one tile is taken whole."""
+        tile, ov = self.vae_tile, self.vae_tile_overlap
+        dev = x.device
+
+        def ramp(n: int, lo_edge: bool, hi_edge: bool) -> torch.Tensor:
+            r = torch.ones(n, device=dev)
+            e = ov * s_out
             if e and lo_edge:
                 r[:e] = torch.arange(e, device=dev) / e
             if e and hi_edge:
@@ -312,25 +378,53 @@ class Engine:
             return pos
 
         ty, tx = min(tile, h), min(tile, w)
-        out = torch.zeros(b, h * f, w * f, 3, device=dev)
-        weight = torch.zeros(1, h * f, w * f, 1, device=dev)
+        out = torch.zeros(x.shape[0], h * s_out, w * s_out, c_out,
+                          device=dev)
+        weight = torch.zeros(1, h * s_out, w * s_out, 1, device=dev)
         for y0 in positions(h):
             for x0 in positions(w):
                 y1, x1 = y0 + ty, x0 + tx
-                img = self._decode(lat[:, :, y0:y1, x0:x1], out_u8=False)
-                wmap = (ramp(ty * f, y0 > 0, y1 < h)[:, None]
-                        * ramp(tx * f, x0 > 0, x1 < w)[None, :])[None, :, :,
-                                                                 None]
-                out[:, y0 * f:y1 * f, x0 * f:x1 * f] += img * wmap
-                weight[:, y0 * f:y1 * f, x0 * f:x1 * f] += wmap
+                part = fn(x[:, :, y0 * s_in:y1 * s_in, x0 * s_in:x1 * s_in])
+                wmap = (ramp(ty * s_out, y0 > 0, y1 < h)[:, None]
+                        * ramp(tx * s_out, x0 > 0, x1 < w)[None, :])[
+                            None, :, :, None]
+                oy, ox = slice(y0 * s_out, y1 * s_out), slice(x0 * s_out,
+                                                              x1 * s_out)
+                out[:, oy, ox] += part * wmap
+                weight[:, oy, ox] += wmap
         return out / weight.clamp_min(1e-8)
+
+    # ------------------------------------------------------------------
+    # encode
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def encode_image(self, images) -> torch.Tensor:
+        """(B, H, W, 3) images in [-1, 1] -> float32 (B, H/f, W/f, 4)
+        scaled latents (the posterior mean times the scaling factor) on the
+        device.  With ``vae_tile`` and an image larger than one tile, the
+        encoder runs on overlapping tiles of ``vae_tile`` latents (the
+        decode's grid), blended in latent space on the device."""
+        img = self._to_device(images).float().permute(0, 3, 1, 2)
+        f = self.models.vae_scale_factor
+        h, w = img.shape[2] // f, img.shape[3] // f
+        tile = self.vae_tile
+        if tile is None or (h <= tile and w <= tile):
+            return self._encode_whole(img)
+        return self._tiled(self._encode_whole, img, h, w, f, 1,
+                           self.models.vae_config.latent_channels)
+
+    def _encode_whole(self, img: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) in [-1, 1] -> float32 (B, h, w, 4) scaled means."""
+        mean, _ = self.models.vae.encode(img)
+        return (mean.float() * self.models.vae_config.scaling_factor) \
+            .permute(0, 2, 3, 1)
 
     def _added_conds(self, pad, pooled, uncond_pooled, B: int, Bp: int,
                      h: int, w: int) -> tuple:
         """SDXL text_time conditioning of one dispatch: the CFG-stacked
         pooled embeddings (uncond rows first, pad rows included) and the
-        size/crop ids (h·f, w·f, 0, 0, h·f, w·f) for every row; () for
-        the other families."""
+        size/crop ids, (h·f, w·f, 0, 0, h·f, w·f) for every row, or the
+        refiner's (h·f, w·f, 0, 0, score); () for the other families."""
         if not self.models.is_xl:
             if pooled is not None or uncond_pooled is not None:
                 raise ValueError("pooled embeddings are SDXL conditioning; "
@@ -347,22 +441,32 @@ class Engine:
             uncond_pooled = uncond_pooled.expand(
                 (B,) + tuple(uncond_pooled.shape[1:]))
         f = self.models.vae_scale_factor
-        ids = torch.tensor([h * f, w * f, 0, 0, h * f, w * f],
-                           dtype=torch.float32, device=self.device)
-        return (torch.cat([pad(uncond_pooled), pad(pooled)]),
-                ids.expand(2 * Bp, 6))
+        if self.models.unet_config.addition_num_ids == 5:
+            # the refiner: (orig_h, orig_w, crop_t, crop_l, aesthetic
+            # score), the score 2.5 on the uncond rows and 6.0 on the cond
+            ids = torch.tensor([[h * f, w * f, 0, 0, a]
+                                for a in REFINER_AESTHETIC],
+                               dtype=torch.float32, device=self.device)
+            ids = ids.repeat_interleave(Bp, dim=0)
+        else:
+            ids = torch.tensor([h * f, w * f, 0, 0, h * f, w * f],
+                               dtype=torch.float32,
+                               device=self.device).expand(2 * Bp, 6)
+        return torch.cat([pad(uncond_pooled), pad(pooled)]), ids
 
     @torch.no_grad()
     def _program(self, context, added, latents, guidance: float, sched,
-                 tables, out_u8: bool,
-                 generator: NoiseSource) -> torch.Tensor:
+                 tables, out_u8: bool, generator: NoiseSource,
+                 after_step=None) -> torch.Tensor:
         """The denoise loop and the decode.  Each ``guidance_interval``
         segment runs with CFG (2B UNet rows, ``context`` and the SDXL
         ``added`` conditions whole) or cond-only (B rows, their cond
         halves).  With ``step_cache`` the full-trunk
         decision is a host boolean, and the deep feature a Python variable
         that each segment's first step (always full) sets.  A stochastic
-        sampler's step gets a noise field drawn on the device."""
+        sampler's step gets a noise field drawn on the device.
+        ``after_step(i, latents) -> latents`` runs after each step
+        (inpaint's projection)."""
         unet, k = self.models.unet, self.step_cache
         split = self.step_cache_split if k else None
         lat = latents * sched.init_noise_sigma(tables)
@@ -405,10 +509,61 @@ class Engine:
                                          self.guidance_rescale)
                 state, lat = sched.step(tables, state, i, eps, lat,
                                         draw(i, lat) if draw else None)
+                if after_step is not None:
+                    lat = after_step(i, lat)
         return self._decode_frames(lat, out_u8)
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
+
+    def _conditioning(self, cond, uncond, B: int, h: int, w: int, pooled,
+                      uncond_pooled) -> tuple:
+        """One dispatch of B rows at (h, w) latents: -> (pad, context,
+        added), where ``pad`` fills a batch with zero rows up to the
+        bucket, ``context`` is the CFG-stacked (uncond rows first)
+        text context and ``added`` the SDXL conditions."""
+        cond, uncond = self._to_device(cond), self._to_device(uncond)
+        Bp = -(-B // self.batch_bucket) * self.batch_bucket
+        if uncond.shape[0] == 1 and B > 1:
+            uncond = uncond.expand((B,) + tuple(uncond.shape[1:]))
+
+        def pad(x):
+            if x.shape[0] == Bp:
+                return x
+            fill = x.new_zeros((Bp - x.shape[0],) + tuple(x.shape[1:]))
+            return torch.cat([x, fill])
+
+        context = torch.cat([pad(uncond), pad(cond)])
+        added = self._added_conds(pad, pooled, uncond_pooled, B, Bp, h, w)
+        return pad, context, added
+
+    def _sampler(self) -> tuple:
+        """(name, sampler) of a dispatch, read once under the lock."""
+        with self._lock:
+            return self.scheduler_name, self.sched
+
+    def _noise_source(self, generator) -> NoiseSource:
+        return (generator if generator is not None else
+                torch.Generator(device=self.device).manual_seed(0))
+
+    def _field(self, noise, shape: tuple, generator) -> torch.Tensor:
+        """An NCHW float32 noise field of ``shape`` on the device: the
+        caller's NHWC ``noise`` (1 or ``shape[0]`` rows, broadcast), or a
+        draw from ``generator``."""
+        if noise is not None:
+            return self._to_device(noise).float().permute(0, 3, 1, 2) \
+                .expand(shape)
+        if not isinstance(generator, torch.Generator):
+            raise ValueError("a callable noise source replaces the step "
+                             "draws only: pass the initial field as noise=")
+        return torch.randn(shape, generator=generator, device=self.device,
+                           dtype=torch.float32)
+
+    @staticmethod
+    def _check_output_dtype(output_dtype: str):
+        if output_dtype not in ("float32", "uint8"):
+            raise ValueError(f"output_dtype must be float32 or uint8, "
+                             f"got {output_dtype!r}")
 
     def denoise_frames_async(self, cond, uncond, noise, *,
                              num_inference_steps: int = 50,
@@ -429,35 +584,109 @@ class Engine:
         device, by default one seeded 0, or a callable ``(i, latents) ->
         field`` (fields of the latents' shape, or ``(1, C, h, w)`` to
         broadcast over the batch) that replaces the draws."""
-        if output_dtype not in ("float32", "uint8"):
-            raise ValueError(f"output_dtype must be float32 or uint8, "
-                             f"got {output_dtype!r}")
-        cond, uncond = self._to_device(cond), self._to_device(uncond)
+        self._check_output_dtype(output_dtype)
         noise = self._to_device(noise).float()
         B = noise.shape[0]
-        Bp = -(-B // self.batch_bucket) * self.batch_bucket
-        if uncond.shape[0] == 1 and B > 1:
-            uncond = uncond.expand((B,) + tuple(uncond.shape[1:]))
-
-        def pad(x):
-            if x.shape[0] == Bp:
-                return x
-            fill = x.new_zeros((Bp - x.shape[0],) + tuple(x.shape[1:]))
-            return torch.cat([x, fill])
-
-        context = torch.cat([pad(uncond), pad(cond)])
-        added = self._added_conds(pad, pooled, uncond_pooled, B, Bp,
-                                  noise.shape[1], noise.shape[2])
+        pad, context, added = self._conditioning(
+            cond, uncond, B, noise.shape[1], noise.shape[2], pooled,
+            uncond_pooled)
         latents = pad(noise).permute(0, 3, 1, 2)
-        with self._lock:
-            sched_name, sched = self.scheduler_name, self.sched
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
+        sched_name, sched = self._sampler()
         imgs = self._program(context, added, latents, float(guidance_scale),
                              sched, self._tables(sched_name, sched,
                                                  num_inference_steps, eta),
-                             output_dtype == "uint8", generator)
+                             output_dtype == "uint8",
+                             self._noise_source(generator))
         return imgs, B
+
+    def img2img(self, cond, uncond, init_latents, *, strength: float = 0.75,
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                eta: float = 0.0, generator: Optional[NoiseSource] = None,
+                noise=None, output_dtype: str = "float32", pooled=None,
+                uncond_pooled=None, **unported) -> np.ndarray:
+        """Denoise from ``init_latents`` ((B, h, w, 4) scaled latents, as
+        ``encode_image`` gives) noised to the schedule's entry point:
+        ``strength`` in (0, 1] is the share of the schedule that runs (1:
+        txt2img from noise).  The sigma samplers noise as x + σ₀·noise, the
+        others by ``add_noise`` at the first timestep that runs.  ``noise``:
+        one (1 or B, h, w, 4) field, broadcast over the batch (vid2vid's
+        shared field); otherwise it is drawn from ``generator``, which then
+        also gives the stochastic samplers' step fields.  -> numpy (B, H,
+        W, 3) frames, float32 in [0, 1] or uint8."""
+        refuse_unported("img2img", ("control", "control_scale",
+                                    "guess_mode", "ip_tokens", "ip_scale"),
+                        unported)
+        if not 0.0 < strength <= 1.0:
+            raise ValueError("strength must be in (0, 1]")
+        self._check_output_dtype(output_dtype)
+        lat = self._to_device(init_latents).float().permute(0, 3, 1, 2)
+        B, _, h, w = lat.shape
+        sched_name, sched = self._sampler()
+        tables, run, _ = self._entry_tables(
+            sched_name, sched, num_inference_steps, eta, strength)
+        generator = self._noise_source(generator)
+        noise = self._field(noise, tuple(lat.shape), generator)
+        if sched_name in SIGMA_SAMPLERS:
+            noisy = lat + float(run["sigmas"][0]) * noise
+        else:
+            noisy = sched.add_noise(tables, lat, noise,
+                                    int(run["timesteps"][0]))
+        pad, context, added = self._conditioning(
+            cond, uncond, B, h, w, pooled, uncond_pooled)
+        imgs = self._program(context, added, pad(noisy),
+                             float(guidance_scale), sched, run,
+                             output_dtype == "uint8", generator)
+        return imgs[:B].cpu().numpy()
+
+    def inpaint(self, cond, uncond, init_latents, mask, *,
+                num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                eta: float = 0.0, generator: Optional[NoiseSource] = None,
+                noise=None, output_dtype: str = "float32", pooled=None,
+                uncond_pooled=None, **unported) -> np.ndarray:
+        """Regenerate where ``mask`` is 1 and keep ``init_latents`` where it
+        is 0: the whole schedule runs from noise, and after every step the
+        known region is put back at that step's post-step noise level
+        (``sigmas[i+1]`` for the sigma samplers; ``alphas_cumprod`` at the
+        next timestep for the others, and the clean latents after the last
+        step).  init_latents: (B, h, w, 4) scaled latents; mask: (B, h, w,
+        1) in [0, 1] at latent size.  One field ``noise0`` ((1 or B, h, w,
+        4), else drawn from ``generator``) is both the first latents and
+        every injection's noise.  The KL decode is tiled under
+        ``vae_tile``; the engine's step caching and guidance interval apply
+        as in a txt2img dispatch (the JAX engine's inpaint program runs
+        neither).  -> numpy (B, H, W, 3) frames."""
+        refuse_unported("inpaint", ("ip_tokens", "ip_scale"), unported)
+        self._check_output_dtype(output_dtype)
+        init = self._to_device(init_latents).float().permute(0, 3, 1, 2)
+        B, _, h, w = init.shape
+        pad, context, added = self._conditioning(
+            cond, uncond, B, h, w, pooled, uncond_pooled)
+        sched_name, sched = self._sampler()
+        tables = self._tables(sched_name, sched, num_inference_steps, eta)
+        generator = self._noise_source(generator)
+        init = pad(init)
+        noise0 = pad(self._field(noise, tuple(init[:B].shape), generator))
+        m = pad(self._to_device(mask).float().permute(0, 3, 1, 2)
+                .expand(B, 1, h, w))
+        n_loop = sched.num_loop_steps(tables)
+        sigma_space = sched_name in SIGMA_SAMPLERS
+
+        def known(i):
+            """The known region at loop index i's post-step noise level
+            (euler_ancestral's is sigmas[i+1] too: its sigma_down and
+            sigma_up recombine to it)."""
+            if sigma_space:
+                return init + float(tables["sigmas"][i + 1]) * noise0
+            if i >= n_loop - 1:
+                return init
+            return sched.add_noise(tables, init, noise0,
+                                   int(tables["timesteps"][i + 1]))
+
+        imgs = self._program(context, added, noise0, float(guidance_scale),
+                             sched, tables, output_dtype == "uint8",
+                             generator, after_step=lambda i, lat: (
+                                 m * lat + (1.0 - m) * known(i)))
+        return imgs[:B].cpu().numpy()
 
     def denoise_frames(self, cond, uncond, noise, **kw) -> np.ndarray:
         """Blocking variant -> numpy (B, H, W, 3), float32 in [0, 1] (or

@@ -120,7 +120,8 @@ def test_random_builds_each_family(monkeypatch):
     calls = {}
     monkeypatch.setattr(SDModels, "build", classmethod(
         lambda cls, *a, **kw: calls.setdefault("last", (a, kw))))
-    for family in ("sd1", "sd2", "sdxl"):
+    monkeypatch.setattr(SDModels, "refiner", classmethod(lambda cls, m: m))
+    for family in ("sd1", "sd2", "sdxl", "sdxl_refiner"):
         calls.clear()
         SDModels.random(family)
         (ucfg, vcfg, tcfg, seed, std, dtype, taesd), kw = calls["last"]
@@ -132,10 +133,14 @@ def test_random_builds_each_family(monkeypatch):
                         dict(scheduler_config=V_PRED)),
                 "sdxl": (UNetConfig.sd_xl(), VAEConfig.sd_xl(),
                          CLIPTextConfig.sd_xl_l(),
-                         dict(text_config_2=CLIPTextConfig.sd_xl_g()))}
+                         dict(text_config_2=CLIPTextConfig.sd_xl_g())),
+                "sdxl_refiner": (UNetConfig.sd_xl_refiner(),
+                                 VAEConfig.sd_xl(), CLIPTextConfig.sd_xl_g(),
+                                 {})}
         assert (ucfg, vcfg, tcfg, kw) == want[family]
-    with pytest.raises(ValueError, match="'sd1', 'sd2' and 'sdxl'"):
-        SDModels.random("sdxl_refiner")
+    with pytest.raises(ValueError,
+                       match="'sd1', 'sd2', 'sdxl' and 'sdxl_refiner'"):
+        SDModels.random("sdxl_base")
 
 
 def test_default_batch_follows_the_default_size():

@@ -266,11 +266,16 @@ def test_xl_engine_embeds_both_towers(xl_bundles):
 
 
 def test_refiner_ids_are_refused(xl_bundles):
+    """text_time takes SDXL-base's 6 ids or the refiner's 5 (served since
+    the edit paths came); any other count is refused."""
     _, pm = xl_bundles
-    refiner = dataclasses.replace(pm, unet_config=dataclasses.replace(
-        pm.unet_config, addition_num_ids=5))
-    with pytest.raises(NotImplementedError, match="refiner"):
-        Engine(refiner, CPU)
+    for ids in (5, 6):
+        Engine(dataclasses.replace(pm, unet_config=dataclasses.replace(
+            pm.unet_config, addition_num_ids=ids)), CPU)
+    other = dataclasses.replace(pm, unet_config=dataclasses.replace(
+        pm.unet_config, addition_num_ids=4))
+    with pytest.raises(ValueError, match="refiner"):
+        Engine(other, CPU)
 
 
 def test_xl_presets():

@@ -131,8 +131,10 @@ def test_unported_options_raise(where, kw, tmp_path):
 def test_port_never_imports_jax(tmp_path):
     """A walk with video and audio, one with dpm x ``step_cache=2``, one
     with lcm under ``frozen_noise``, a tiny SDXL-shaped walk under ``fast``,
-    and decodes through the tiny decoder and in tiles import neither jax
-    nor the JAX package, not even its host-only modules."""
+    decodes through the tiny decoder and in tiles, an img2img, an inpaint,
+    a vid2vid of the first walk's video, a tiny refiner's img2img and a
+    TAESD encode import neither jax nor the JAX package, not even its
+    host-only modules."""
     wav = click_track(tmp_path / "beat.wav")
     code = (
         "import sys, torch\n"
@@ -165,6 +167,22 @@ def test_port_never_imports_jax(tmp_path):
         "    e = Engine(SDModels.tiny(taesd=True), torch.device('cpu'), "
         "**kw)\n"
         "    assert e.decode_latents(lat).shape == (1, 24, 40, 3)\n"
+        "    assert e.models.taesd.encode(torch.rand(1, 3, 8, 8)).shape == "
+        "(1, 4, 4, 4)\n"
+        "p = P.tiny(torch.device('cpu'))\n"
+        "img = (torch.rand(2, 32, 32, 3) * 255).to(torch.uint8).numpy()\n"
+        "assert len(p.img2img(img, 'a', num_inference_steps=3)) == 2\n"
+        "assert p.inpaint(img[0], img[0, :, :, 0] > 127, 'a', "
+        "num_inference_steps=3, output_type='np').shape == (1, 32, 32, 3)\n"
+        "import glob\n"
+        f"src = sorted(glob.glob({str(tmp_path)!r} + '/n/n.*'))[0]\n"
+        "p.vid2vid(src, 'a', num_inference_steps=2, batch_size=2, "
+        f"output_filepath={str(tmp_path / 'v.mp4')!r})\n"
+        "r = Engine(SDModels.tiny_refiner(), torch.device('cpu'))\n"
+        "assert r.img2img(r.embed_text('a'), r.embed_text(''), "
+        "r.encode_image(torch.rand(1, 16, 16, 3) * 2 - 1), "
+        "pooled=r.embed_text_pooled('a'), num_inference_steps=3)"
+        ".shape == (1, 16, 16, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
@@ -178,6 +196,7 @@ def test_port_never_imports_jax(tmp_path):
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
+    assert [p.stat().st_size > 0 for p in tmp_path.glob("v.*")] == [True]
 
 
 @pytest.mark.parametrize("offset,duration,fps,margin,smooth", [
