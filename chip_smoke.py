@@ -70,7 +70,24 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    1024² img2img frame at strength 0.3, ddim-50 (15 steps), CFG 7.5, batch
    1, with build time and warm seconds (least of 2).  Each run's launches by
    shape, every one of which phase 3 checks (this phase's new rows in bf16
-   only).
+   only);
+10. addons: the conditioning add-ons on phase 5's bundle, pndm-50, CFG 7.5,
+   batch 8, 512², each add-on drawn at its published widths (bf16 but the
+   IP-Adapter's projection and image tower, fp32): a ControlNet
+   (lllyasviel/sd-controlnet-canny's geometry) walk of 16 frames on one
+   edge map and its warm dispatch beside a plain one (least of 2 each); one
+   dispatch with two ControlNets under ``guess_mode``; vid2vid of 16 frames
+   with ``control_from_source="canny"``; the walk again with the taps
+   zeroed, whose frames must equal a plain walk's; the IP-Adapter SD 1.5
+   image tower (OpenCLIP ViT-H/14) on the card against the CPU, an
+   IP-Adapter walk of 16 frames and its warm dispatch, and a dispatch at
+   ``ip_scale=0`` that must equal the plain one; a weighted prompt of two
+   77-token windows, walked and timed; a kohya LoRA (rank 8 on every
+   attention projection and resnet convolution) and a textual-inversion
+   file written here and merged, each merged weight held to its delta,
+   then one dispatch.  Each run's launches by shape, every one of which
+   phase 3 checks (the IP rows at Sk=4 and the weighted rows at Sk=154,
+   bf16).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -95,7 +112,7 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled", "families", "edit")
+          "distilled", "families", "edit", "addons")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -254,6 +271,26 @@ EDIT_GN_SHAPES = new_rows(
      for c, h, w, eps, silu in table], GN_SHAPES, FAMILY_GN_SHAPES)
 EDIT_ATTN_SHAPES = new_rows([(2, sq, sk, h, 64) for sq, sk, h in REFINER_ATTN],
                             ATTN_SHAPES, FAMILY_ATTN_SHAPES)
+# Phase 10's add-ons on the SD 1.x UNet at 512² and CFG batch 16: the
+# IP-Adapter's second cross-attention over 4 image tokens, and the text
+# cross-attention over a weighted context of two 77-token windows, at each
+# level's (Sq, D).  The ControlNet trunk runs the UNet's own down and mid
+# keys.
+UNET_LEVELS = [(4096, 40), (1024, 80), (256, 160), (64, 160)]
+IP_TOKENS, WEIGHTED_KEYS = 4, 2 * 77
+ADDON_ATTN_SHAPES = new_rows(
+    [(16, sq, sk, 8, d) for sk in (IP_TOKENS, WEIGHTED_KEYS)
+     for sq, d in UNET_LEVELS],
+    ATTN_SHAPES, FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES)
+# the LoRA merge against its delta: the merged bf16 weight is the fp32 sum
+# W + delta rounded once, within half an ulp (2^-8 relative) of it, plus the
+# fp32 sums' own rounding (the check's delta is a matmul, the merge's an
+# einsum; 9 terms at 2^-24 each) relative to the sum of the terms' sizes,
+# |W| + |up|·|down|, which cancellation can leave far above |W + delta|
+LORA_MERGE_RTOL = 2.0 ** -8
+LORA_MERGE_FP32 = 1e-6
+# the IP-Adapter's image tower (fp32, TF32 off) on the card against the CPU
+TOWER_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def gpu_line() -> str:
@@ -454,7 +491,8 @@ def phase_kernels(torch):
                             bound_ms=0.0) for name in summary})
         for group, attn, gn in (
             ("families", FAMILY_ATTN_SHAPES, FAMILY_GN_SHAPES),
-            ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES))}
+            ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES),
+            ("addons", ADDON_ATTN_SHAPES, []))}
 
     def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
@@ -479,8 +517,10 @@ def phase_kernels(torch):
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
         eb = torch.finfo(dt).bits // 8
-        # the families' and the edit paths' rows in the walks' dtype only
+        # the families', the edit paths' and the add-ons' rows in the walks'
+        # dtype only
         shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
+                                + ADDON_ATTN_SHAPES
                                 if dt == torch.bfloat16 else [])
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -565,6 +605,8 @@ def phase_kernels(torch):
         torch.cuda.empty_cache()
     for group, (_, sums) in groups.items():
         for name, f in sums.items():
+            if not f["ms"]:
+                continue  # the group has no rows of this kernel
             print(f"{name}: the {group} bf16 rows sum to kernel "
                   f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, library "
                   f"{f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms")
@@ -690,7 +732,7 @@ def counted_run(torch, label: str, run):
         raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
     checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES
-                + EDIT_ATTN_SHAPES}
+                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES}
                | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES
                   + EDIT_GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
@@ -720,15 +762,18 @@ def check_frames(label: str, frames: np.ndarray, shape=(8, 512, 512, 3)):
 
 
 def walk_clip(pipe, name: str, steps: int, batch_size=8, guidance=7.5,
-            frames: int = 16, side: int = 512):
+              frames: int = 16, side: int = 512,
+              prompts=("a red fox in the snow", "a lighthouse at dusk"),
+              **kw):
     """2 prompts x ``frames`` frames (16: two dispatches at batch 8) at
-    ``side``², or with ``batch_size=None`` the pipeline's own batch."""
+    ``side``², or with ``batch_size=None`` the pipeline's own batch;
+    ``kw`` goes to ``walk`` (the add-ons' conditioning)."""
     shutil.rmtree(WORK / name, ignore_errors=True)
-    pipe.walk(prompts=["a red fox in the snow", "a lighthouse at dusk"],
-              seeds=[42, 1337], num_interpolation_steps=frames,
-              output_dir=str(WORK), name=name, height=side, width=side,
-              num_inference_steps=steps, guidance_scale=guidance,
-              batch_size=batch_size, make_video=False)
+    pipe.walk(prompts=list(prompts), seeds=[42, 1337],
+              num_interpolation_steps=frames, output_dir=str(WORK),
+              name=name, height=side, width=side, num_inference_steps=steps,
+              guidance_scale=guidance, batch_size=batch_size,
+              make_video=False, **kw)
 
 
 def dispatch_inputs(torch, pipe, frames: int = 8):
@@ -1251,6 +1296,315 @@ def phase_edit(torch, models, frames, xl_parts):
     return out
 
 
+def write_safetensors(path: Path, tensors: dict):
+    """float32 arrays -> a ``.safetensors`` file (8-byte little-endian
+    header length, JSON header, raw little-endian data): the card's machine
+    has no safetensors package, and the port reads the format itself."""
+    header, blobs, offset = {}, [], 0
+    for name, value in tensors.items():
+        blob = np.ascontiguousarray(value, "<f4").tobytes()
+        header[name] = {"dtype": "F32", "shape": list(value.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+def edge_map(side: int = 512) -> np.ndarray:
+    """A (side, side, 3) canny map in [0, 1] of a drawn scene: a disc, a
+    frame and a diagonal band."""
+    from stable_diffusion_videos_tpu_torch.pipeline.walk import canny_map
+    yy, xx = np.mgrid[:side, :side]
+    img = np.zeros((side, side), np.uint8)
+    img[(yy - side * 0.4) ** 2 + (xx - side * 0.6) ** 2 < (side * 0.2) ** 2] \
+        = 200
+    img[side // 8:side // 8 * 7, side // 10:side // 10 + 12] = 255
+    img[np.abs(yy - xx) < side // 16] = 120
+    return canny_map(np.repeat(img[..., None], 3, axis=2))
+
+
+def kohya_lora(unet, rank: int = 8, alpha: float = 4.0, seed: int = 8):
+    """A kohya LoRA of rank ``rank`` on every attention projection and every
+    resnet convolution of ``unet`` -> ({file key: array}, {module name:
+    (down, up)}); the 3x3 convolutions get LoCon pairs."""
+    rng = np.random.default_rng(seed)
+    tensors, pairs = {}, {}
+    for name, mod in unet.named_modules():
+        if not (name.endswith(("to_q", "to_k", "to_v", "to_out.0"))
+                or name.endswith(("resnets.0.conv1", "resnets.0.conv2",
+                                  "resnets.1.conv1", "resnets.1.conv2",
+                                  "resnets.2.conv1", "resnets.2.conv2"))):
+            continue
+        w = mod.weight
+        spatial = tuple(w.shape[2:])
+        down = rng.standard_normal((rank, w.shape[1]) + spatial,
+                                   dtype=np.float32) * 0.05
+        up = rng.standard_normal((w.shape[0], rank) + (1,) * len(spatial),
+                                 dtype=np.float32) * 0.05
+        key = "lora_unet_" + name.replace(".", "_")
+        tensors.update({f"{key}.lora_down.weight": down,
+                        f"{key}.lora_up.weight": up,
+                        f"{key}.alpha": np.array(alpha, np.float32)})
+        pairs[name] = (down, up)
+    return tensors, pairs
+
+
+def in_turns(torch, dispatches: dict) -> dict:
+    """Warm seconds of each ``{label: dispatch}``, timed in turns a, b, a,
+    b (one call each after one warming call): -> {label: least}."""
+    least = {}
+    for label in (*dispatches, *dispatches):
+        warm, _ = warm_seconds(torch, dispatches[label], runs=1,
+                               warmed=label in least)
+        least[label] = min(least.get(label, warm), warm)
+    return least
+
+
+def phase_addons(torch, models, frames):
+    """ControlNet walks, dispatches and vid2vid, the IP-Adapter's tower,
+    walk and dispatches, a weighted prompt's walk and dispatch, and a LoRA
+    and textual-inversion merge with one dispatch; -> {run: {kernel:
+    launches}}."""
+    from stable_diffusion_videos_tpu_torch.models.controlnet import \
+        ControlNetBundle
+    from stable_diffusion_videos_tpu_torch.models.ip_adapter import (
+        IPAdapter, preprocess_clip_image)
+    from stable_diffusion_videos_tpu_torch.models.lora_file import apply_lora
+    from stable_diffusion_videos_tpu_torch.models.safety import \
+        CLIPVisionConfig
+    from stable_diffusion_videos_tpu_torch.models.textual_inversion import \
+        apply_textual_inversion
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    line = gpu_line()
+    out = {}
+    WORK.mkdir(parents=True, exist_ok=True)
+    plain = Engine(models, dev)
+    if frames is None:  # phase 5 did not run: one dispatch's frames
+        cond, uncond, noise = dispatch_inputs(
+            torch, StableDiffusionWalkPipeline(models, dev))
+        frames = plain.denoise_frames(cond, uncond, noise,
+                                      num_inference_steps=20,
+                                      output_dtype="uint8")
+    run = dict(num_inference_steps=50, guidance_scale=7.5)
+
+    def nets(seed):
+        t0 = time.perf_counter()
+        cn = ControlNetBundle.random(seed=seed, dtype=bf16).to(dev)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in cn.module.parameters())
+        print(f"addons: random ControlNet ({n / 1e9:.3f}B parameters) built "
+              f"in {time.perf_counter() - t0:.1f} s")
+        return cn
+
+    # ControlNet: a walk on one edge map, warm dispatches beside plain ones
+    edge = edge_map()
+    cn = nets(5)
+    pipe = StableDiffusionWalkPipeline(models, dev, controlnet=cn)
+    out["controlnet_walk"], walk_s = counted_run(
+        torch, "addons ControlNet walk", lambda: walk_clip(
+            pipe, "chip_smoke_cn", 50, control_image=edge))
+    check_pngs(WORK / "chip_smoke_cn", 16)
+    cond, uncond, noise = dispatch_inputs(torch, pipe)
+    timed = in_turns(torch, {
+        label: (lambda kw=kw: pipe.engine.denoise_frames(
+            cond, uncond, noise, output_dtype="uint8", **run, **kw))
+        for label, kw in (("plain", {}), ("ControlNet", dict(control=edge)))})
+    print(f"addons: ControlNet walk of 16 frames {walk_s:.3f} s (first "
+          f"dispatch included); warm dispatch of 8 frames, pndm-50 CFG 7.5, "
+          f"least of 2 in turns: ControlNet {timed['ControlNet']:.4f} s, "
+          f"plain {timed['plain']:.4f} s, ratio "
+          f"{timed['ControlNet'] / timed['plain']:.4f}, on {line}")
+
+    # two ControlNets under guess_mode
+    cn2 = nets(7)
+    multi = Engine(models, dev, controlnet=[cn, cn2])
+    res = {}
+    out["multi_guess"], secs = counted_run(
+        torch, "addons two ControlNets guess_mode", lambda: res.update(
+            x=multi.denoise_frames(cond, uncond, noise, output_dtype="float32",
+                                   control=[edge, edge[:, ::-1]],
+                                   control_scale=[1.0, 0.5],
+                                   guess_mode=True, **run)))
+    check_frames("addons: two ControlNets, guess_mode", res["x"])
+    print(f"addons: dispatch of 8 frames with two ControlNets under "
+          f"guess_mode {secs:.4f} s (first call) on {line}")
+    del multi, cn2
+
+    # vid2vid with canny maps from each source frame
+    source = np.concatenate([frames, frames[:, :, ::-1]])
+    out["vid2vid_canny"], secs = counted_run(
+        torch, "addons vid2vid canny", lambda: res.update(x=pipe.vid2vid(
+            source, "a watercolour painting of a fox", strength=0.5,
+            batch_size=8, control_from_source="canny", output_type="frames",
+            **run)))
+    sizes = {im.size for im in res["x"]}
+    print(f"addons: vid2vid of 16 frames, control_from_source='canny', "
+          f"strength 0.5, batch 8: {secs:.4f} s, {16 / secs:.4f} frames/s "
+          f"(first call) on {line}; {len(res['x'])} frames of {sizes}")
+    if len(res["x"]) != 16 or sizes != {(512, 512)}:
+        raise AssertionError(f"vid2vid gave {len(res['x'])} of {sizes}")
+
+    # the taps zeroed: the walk must equal the plain walk frame for frame
+    cn.zeroed()
+    out["controlnet_zeroed_walk"], _ = counted_run(
+        torch, "addons zeroed ControlNet walk", lambda: walk_clip(
+            pipe, "chip_smoke_cn_zero", 50, control_image=edge))
+    walk_clip(pipe, "chip_smoke_cn_plain", 50)
+    zero = read_frames(WORK / "chip_smoke_cn_zero", 16)
+    base = read_frames(WORK / "chip_smoke_cn_plain", 16)
+    print(f"addons: zeroed ControlNet walk vs plain walk, 16 uint8 frames: "
+          f"equal {np.array_equal(zero, base)}")
+    if not np.array_equal(zero, base):
+        raise AssertionError("the zeroed ControlNet changed the frames (max "
+                             f"{np.abs(zero.astype(int) - base).max()})")
+    for name in ("chip_smoke_cn_zero", "chip_smoke_cn_plain"):
+        shutil.rmtree(WORK / name)
+    del pipe, cn
+    torch.cuda.empty_cache()
+
+    # IP-Adapter SD 1.5 with its ViT-H/14 image tower
+    t0 = time.perf_counter()
+    ip = IPAdapter.random(models.unet_config, seed=6,
+                          vision=CLIPVisionConfig.vit_h14())
+    n = sum(p.numel() for p in ip.image_encoder.parameters())
+    print(f"addons: random IP-Adapter (tower {n / 1e9:.3f}B parameters, "
+          f"fp32) built in {time.perf_counter() - t0:.1f} s")
+    image = frames[3]
+    with torch.no_grad():
+        pix = preprocess_clip_image(torch.from_numpy(image[None] / 255.0),
+                                    224)
+        emb_cpu = ip.image_encoder(pix.float())
+        tok_cpu = ip.image_tokens(image)
+        ip.to(dev)
+        emb = ip.image_encoder(pix.float().to(dev)).cpu()
+        tok = ip.image_tokens(image)
+    for label, got, want in (("embedding", emb, emb_cpu),
+                             ("tokens", tok.cpu(), tok_cpu)):
+        torch.testing.assert_close(got, want, **TOWER_TOL,
+                                   msg=lambda m: f"IP {label}: {m}")
+        print(f"addons: IP image {label} {tuple(got.shape)} on the card vs "
+              f"the CPU, fp32: max_abs_err "
+              f"{(got - want).abs().max().item():.3e} ({TOWER_TOL})")
+    ipipe = StableDiffusionWalkPipeline(models, dev, ip_adapter=ip)
+    out["ip_walk"], walk_s = counted_run(
+        torch, "addons IP-Adapter walk", lambda: walk_clip(
+            ipipe, "chip_smoke_ip", 50, ip_image=image))
+    check_pngs(WORK / "chip_smoke_ip", 16)
+    timed = in_turns(torch, {
+        label: (lambda eng=eng, kw=kw: eng.denoise_frames(
+            cond, uncond, noise, output_dtype="uint8", **run, **kw))
+        for label, eng, kw in (("plain", plain, {}),
+                               ("IP-Adapter", ipipe.engine,
+                                dict(ip_tokens=tok)))})
+    print(f"addons: IP-Adapter walk of 16 frames {walk_s:.3f} s (first "
+          f"dispatch included); warm dispatch of 8 frames, least of 2 in "
+          f"turns: IP-Adapter {timed['IP-Adapter']:.4f} s, plain "
+          f"{timed['plain']:.4f} s, ratio "
+          f"{timed['IP-Adapter'] / timed['plain']:.4f}, on {line}")
+    out["ip_scale0"], _ = counted_run(
+        torch, "addons IP-Adapter ip_scale=0", lambda: res.update(
+            x=ipipe.engine.denoise_frames(cond, uncond, noise,
+                                          output_dtype="uint8", ip_tokens=tok,
+                                          ip_scale=0.0, **run)))
+    base = plain.denoise_frames(cond, uncond, noise, output_dtype="uint8",
+                                **run)
+    print(f"addons: ip_scale=0 dispatch vs plain, 8 uint8 frames: equal "
+          f"{np.array_equal(res['x'], base)}")
+    if not np.array_equal(res["x"], base):
+        raise AssertionError("ip_scale=0 changed the frames")
+    del ipipe, ip
+    torch.cuda.empty_cache()
+
+    # a weighted prompt of two 77-token windows
+    long_prompt = ("a (red fox:1.3) in the [blurry] snow, " + ", ".join(
+        f"detail{i}" for i in range(90)))
+    wpipe = StableDiffusionWalkPipeline(models, dev, prompt_weighting=True)
+    out["weighted_walk"], walk_s = counted_run(
+        torch, "addons weighted walk", lambda: walk_clip(
+            wpipe, "chip_smoke_weighted", 50,
+            prompts=(long_prompt, "a (lighthouse:1.2) at dusk")))
+    check_pngs(WORK / "chip_smoke_weighted", 16)
+    wcond = wpipe.engine.embed_text_weighted(long_prompt, 2).expand(8, -1, -1)
+    wuncond = wpipe.engine.embed_text_weighted("", 2)
+    print(f"addons: weighted context {tuple(wcond.shape)}")
+    timed = in_turns(torch, {
+        label: (lambda args=args: plain.denoise_frames(
+            *args, noise, output_dtype="uint8", **run))
+        for label, args in (("plain", (cond, uncond)),
+                            ("weighted", (wcond, wuncond)))})
+    print(f"addons: weighted walk of 16 frames {walk_s:.3f} s (first "
+          f"dispatch included); warm dispatch of 8 frames, least of 2 in "
+          f"turns: two windows (Sk=154) {timed['weighted']:.4f} s, plain "
+          f"(Sk=77) {timed['plain']:.4f} s, ratio "
+          f"{timed['weighted'] / timed['plain']:.4f}, on {line}")
+    del wpipe
+
+    # a kohya LoRA and a textual-inversion file, merged, then a dispatch
+    tensors, pairs = kohya_lora(models.unet)
+    lora_path, ti_path = WORK / "addons_lora.safetensors", \
+        WORK / "addons_ti.safetensors"
+    write_safetensors(lora_path, tensors)
+    vectors = np.random.default_rng(9).standard_normal(
+        (2, models.text_config.hidden_size), dtype=np.float32) * 0.02
+    write_safetensors(ti_path, {"emb_params": vectors})
+    before = {name: models.unet.get_submodule(name).weight.clone()
+              for name in pairs}
+    t0 = time.perf_counter()
+    merged = apply_textual_inversion(apply_lora(models, lora_path), ti_path)
+    torch.cuda.synchronize()
+    print(f"addons: LoRA ({len(pairs)} modules, rank 8) and textual "
+          f"inversion merged in {time.perf_counter() - t0:.2f} s")
+    worst = 0.0
+    for name, (down, up) in pairs.items():
+        w0 = before[name].float()
+        if not torch.equal(models.unet.get_submodule(name).weight, before[name]):
+            raise AssertionError(f"the merge changed the base bundle's {name}")
+        u2, d2 = up.reshape(up.shape[0], -1), down.reshape(down.shape[0], -1)
+        d = torch.from_numpy((u2 @ d2).reshape(w0.shape) * 0.5).to(dev)
+        terms = torch.from_numpy((np.abs(u2) @ np.abs(d2)).reshape(
+            w0.shape) * 0.5).to(dev)  # alpha 4 / rank 8
+        want = w0 + d
+        err = (merged.unet.get_submodule(name).weight.float() - want).abs()
+        limit = (LORA_MERGE_RTOL * want.abs()
+                 + LORA_MERGE_FP32 * (w0.abs() + terms))
+        ratio = (err / limit.clamp_min(1e-30)).max().item()
+        worst = max(worst, ratio)
+        if ratio > 1.0:
+            raise AssertionError(f"LoRA merge of {name}: W_after - W_before "
+                                 f"is off its delta by {ratio:.3f} of the "
+                                 "limit")
+    table = merged.text_encoder.text_model.embeddings.token_embedding.weight
+    rows = table[-2:].float().cpu().numpy()
+    ti_err = float(np.abs(rows - vectors).max())
+    print(f"addons: LoRA merge: W_after - W_before vs the delta, worst "
+          f"error {worst:.4f} of the limit ({LORA_MERGE_RTOL:.3e} of |W + "
+          f"delta| + {LORA_MERGE_FP32} of |W| + |up|·|down|); TI "
+          f"rows {tuple(table.shape)} vs the file's vectors max_abs_err "
+          f"{ti_err:.3e} (bf16)")
+    if ti_err > np.abs(vectors).max() * 2.0 ** -8 or \
+            merged.text_config.eos_token_id != models.tokenizer.eos_token_id:
+        raise AssertionError("textual inversion rows or EOS id are wrong")
+    lora_eng = Engine(merged, dev)
+    tcond = lora_eng.embed_text("a red fox, addons_ti style").expand(8, -1, -1)
+    out["lora_ti_dispatch"], secs = counted_run(
+        torch, "addons LoRA + TI dispatch", lambda: res.update(
+            x=lora_eng.denoise_frames(tcond, lora_eng.embed_text(""), noise,
+                                      output_dtype="float32", **run)))
+    check_frames("addons: LoRA + TI dispatch", res["x"])
+    print(f"addons: LoRA + TI dispatch of 8 frames {secs:.4f} s (first call) "
+          f"on {line}")
+    del lora_eng, merged
+    for p in (lora_path, ti_path):
+        p.unlink()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1263,11 +1617,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep, distilled, families, edit = (None,) * 6
+    summary, launches, fewstep, distilled, families, edit, addons = \
+        (None,) * 7
     frames, xl_parts = None, None
     models = (sd1_bundle(torch)
-              if {"main", "fewstep", "distilled", "edit"} & set(phases)
-              else None)
+              if {"main", "fewstep", "distilled", "edit", "addons"}
+              & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -1286,9 +1641,11 @@ def main():
             distilled = phase_distilled(torch, models)
         elif name == "families":
             families, xl_parts = phase_families(torch)
-        else:
+        elif name == "edit":
             edit = phase_edit(torch, models, frames, xl_parts)
             xl_parts = None
+        else:
+            addons = phase_addons(torch, models, frames)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -1316,6 +1673,8 @@ def main():
                                   for run, counts in families.items()}
         k["launches_edit"] = {run: counts[wrapper[k["name"]]]
                               for run, counts in edit.items()}
+        k["launches_addons"] = {run: counts[wrapper[k["name"]]]
+                                for run, counts in addons.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

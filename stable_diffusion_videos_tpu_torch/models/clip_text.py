@@ -98,9 +98,9 @@ class CLIPTextConfig:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, d: int, num_heads: int):
+    def __init__(self, d: int, num_heads: int, causal: bool = True):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.causal = num_heads, causal
         self.q_proj = nn.Linear(d, d)
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
@@ -112,12 +112,12 @@ class CLIPAttention(nn.Module):
         q = self.q_proj(x).view(shape)
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
-        return self.out_proj(masked_attention(q, k, v, causal=True)
+        return self.out_proj(masked_attention(q, k, v, causal=self.causal)
                              .reshape(b, s, d))
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, config: CLIPTextConfig):
+    def __init__(self, config):
         super().__init__()
         if config.hidden_act not in ("quick_gelu", "gelu"):
             raise ValueError(f"unknown hidden_act {config.hidden_act!r}")
@@ -132,11 +132,14 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, config: CLIPTextConfig):
+    """Pre-LN block; ``causal`` is the text tower's mask (the image tower,
+    ``models/safety.py``, attends over every position)."""
+
+    def __init__(self, config, causal: bool = True):
         super().__init__()
         d, eps = config.hidden_size, config.layer_norm_eps
         self.layer_norm1 = nn.LayerNorm(d, eps=eps)
-        self.self_attn = CLIPAttention(d, config.num_heads)
+        self.self_attn = CLIPAttention(d, config.num_heads, causal)
         self.layer_norm2 = nn.LayerNorm(d, eps=eps)
         self.mlp = CLIPMLP(config)
 

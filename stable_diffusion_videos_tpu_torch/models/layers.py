@@ -122,7 +122,13 @@ class Upsample2D(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when ``context`` is None."""
+    """Multi-head attention; self-attention when ``context`` is None.
+
+    IP-Adapter decoupled cross-attention (Ye et al. 2023): ``context`` may
+    be a ``(text context, image tokens, scale)`` tuple.  The image tokens go
+    through their own bias-free ``to_k_ip``/``to_v_ip`` projections (added
+    by ``ip_adapter.IPAdapter.splice``) and a second attention call, whose
+    output, times the scale, is added before ``to_out``."""
 
     def __init__(self, query_dim: int, context_dim: int, num_heads: int,
                  head_dim: int):
@@ -135,14 +141,25 @@ class CrossAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, x, context=None):
+        ip = None
+        if isinstance(context, tuple):
+            context, *ip = context
         context = x if context is None else context
         b, sq, _ = x.shape
-        sk = context.shape[1]
-        q = self.to_q(x).view(b, sq, self.num_heads, self.head_dim)
-        k = self.to_k(context).view(b, sk, self.num_heads, self.head_dim)
-        v = self.to_v(context).view(b, sk, self.num_heads, self.head_dim)
-        out = attention(q, k, v).reshape(b, sq, -1)
-        return self.to_out[0](out)
+        shape = (b, -1, self.num_heads, self.head_dim)
+        q = self.to_q(x).view(shape)
+        out = attention(q, self.to_k(context).view(shape),
+                        self.to_v(context).view(shape))
+        if ip is not None:
+            tokens, scale = ip
+            if not hasattr(self, "to_k_ip"):
+                raise ValueError("image tokens (ip_context) given to an "
+                                 "attention without IP-Adapter projections "
+                                 "(to_k_ip/to_v_ip): splice an adapter "
+                                 "first")
+            out = out + scale * attention(q, self.to_k_ip(tokens).view(shape),
+                                          self.to_v_ip(tokens).view(shape))
+        return self.to_out[0](out.reshape(b, sq, -1))
 
 
 class GEGLU(nn.Module):

@@ -7,9 +7,11 @@ the pooled text embedding and the sinusoidal embeddings of the size/crop
 ids through ``add_embedding``), cross-attention down blocks with a per-level
 transformer depth, a cross-attention mid block at the deepest depth, the
 mirrored up path with skip concatenation, then GN+SiLU+conv_out, and
-DeepCache's split into a deep trunk and a shallow pass.  Module names follow
-diffusers (``down_blocks.0.resnets.0...``).  ControlNet and IP-Adapter are
-not ported: passing their inputs raises ``NotImplementedError``.
+DeepCache's split into a deep trunk and a shallow pass.  ControlNet
+residuals add to the skips and the mid block's output, and IP-Adapter image
+tokens reach every cross-attention.  Module names follow diffusers
+(``down_blocks.0.resnets.0...``); ``UNetTrunk`` (conv_in, embeddings, down
+path, mid block) is the part a ControlNet shares.
 """
 
 from __future__ import annotations
@@ -152,7 +154,12 @@ class UNetBlock(nn.Module):
         return x
 
 
-class UNet2DCondition(nn.Module):
+class UNetTrunk(nn.Module):
+    """conv_in, the time (and text_time) embeddings, the down path and the
+    mid block, under diffusers' names: the part of the UNet a ControlNet
+    (``models/controlnet.py``) copies.  ``skip_chans`` lists the channels
+    of the down path's skips, in order."""
+
     def __init__(self, config: UNetConfig):
         super().__init__()
         self.config = cfg = config
@@ -167,7 +174,7 @@ class UNet2DCondition(nn.Module):
                 cfg.addition_pooled_dim
                 + cfg.addition_num_ids * cfg.addition_embed_dim, temb_dim)
 
-        skip_chans = [chans[0]]
+        self.skip_chans = skip_chans = [chans[0]]
         ch = chans[0]
         self.down_blocks = nn.ModuleList()
         for level, out_ch in enumerate(chans):
@@ -189,6 +196,69 @@ class UNet2DCondition(nn.Module):
             [SpatialTransformer(ch, ctx_dim, cfg.heads(n - 1),
                                 cfg.depth(n - 1))])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.conv_in.weight.dtype
+
+    def embed_time(self, timesteps, batch: int, text_embeds=None,
+                   time_ids=None) -> torch.Tensor:
+        """The time embedding, plus SDXL's text_time addition embedding of
+        ``text_embeds`` (B, addition_pooled_dim) and ``time_ids`` (B,
+        addition_num_ids), which a text_time config requires and any other
+        refuses."""
+        cfg, dtype = self.config, self.dtype
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(batch)
+        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
+                                   cfg.flip_sin_to_cos, cfg.freq_shift)
+        temb = self.time_embedding(t_emb.to(dtype))
+        if cfg.addition_embed_dim is not None:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("this UNet config requires text_embeds and "
+                                 "time_ids (SDXL text_time conditioning)")
+            ids_emb = timestep_embedding(
+                time_ids.reshape(-1), cfg.addition_embed_dim,
+                cfg.flip_sin_to_cos, cfg.freq_shift).reshape(batch, -1)
+            add = torch.cat([text_embeds.float(), ids_emb], dim=-1)
+            temb = temb + self.add_embedding(add.to(dtype))
+        elif text_embeds is not None or time_ids is not None:
+            raise ValueError("text_embeds/time_ids given to a UNet without "
+                             "text_time conditioning (addition_embed_dim)")
+        return temb
+
+    def run_down(self, x, temb, ctx, levels: Optional[int] = None,
+                 skip_last_downsample: bool = False) -> tuple:
+        """The down path over the first ``levels`` levels (all by default),
+        the last one's downsample left out with ``skip_last_downsample``:
+        -> (x, skips), the skips starting with ``x`` itself."""
+        skips = [x]
+        blocks = self.down_blocks[:levels]
+        for level, blk in enumerate(blocks):
+            for j in range(len(blk.resnets)):
+                x = blk.layer(j, x, temb, ctx)
+                skips.append(x)
+            if hasattr(blk, "downsamplers") and not (
+                    skip_last_downsample and level == len(blocks) - 1):
+                x = blk.downsamplers[0](x)
+                skips.append(x)
+        return x, skips
+
+    def run_mid(self, x, temb, ctx) -> torch.Tensor:
+        x = self.mid_block.resnets[0](x, temb)
+        x = self.mid_block.attentions[0](x, ctx)
+        return self.mid_block.resnets[1](x, temb)
+
+
+class UNet2DCondition(UNetTrunk):
+    def __init__(self, config: UNetConfig):
+        super().__init__(config)
+        cfg = config
+        chans = cfg.block_out_channels
+        n = len(chans)
+        temb_dim = chans[0] * 4
+        ctx_dim = cfg.cross_attention_dim
+        skip_chans = list(self.skip_chans)
+        ch = chans[-1]
         self.up_blocks = nn.ModuleList()
         for i in range(n):
             level = n - 1 - i
@@ -207,14 +277,11 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm32(chans[0], 32, eps=1e-5)
         self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
 
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
-
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, *, cache_split=None,
                 deep_feature=None, ctrl_down=None, ctrl_mid=None,
-                ip_context=None, text_embeds=None, time_ids=None):
+                ip_context=None, ip_scale=1.0, text_embeds=None,
+                time_ids=None):
         """sample: (B, C, H, W) latents; timesteps: (B,) or scalar;
         encoder_hidden_states: (B, S, cross_attention_dim).  Returns the
         fp32 noise prediction (B, C, H, W).
@@ -230,13 +297,16 @@ class UNet2DCondition(nn.Module):
         With ``deep_feature`` too, the call is the shallow pass: levels
         below the split only, ``down_{split-1}``'s downsample skipped, the
         mid block skipped, the given feature spliced in where the trunk's
-        output would be, and that same feature returned."""
-        unported = dict(ctrl_down=ctrl_down, ctrl_mid=ctrl_mid,
-                        ip_context=ip_context)
-        for name, value in unported.items():
-            if value is not None:
-                raise NotImplementedError(
-                    f"UNet2DCondition({name}=...) is not ported yet")
+        output would be, and that same feature returned.
+
+        ControlNet: ``ctrl_down`` (one residual a skip, ``ControlNet``'s
+        first output) is added to the down path's skips and ``ctrl_mid``
+        to the mid block's output; neither combines with DeepCache.
+
+        IP-Adapter: ``ip_context`` (B, T, cross_attention_dim) image tokens
+        go to every cross-attention's ``to_k_ip``/``to_v_ip`` (spliced by
+        ``ip_adapter.IPAdapter.splice``), their attention added at
+        ``ip_scale``."""
         cfg, dtype = self.config, self.dtype
         n_levels = len(cfg.block_out_channels)
         if cache_split is not None and not 1 <= cache_split <= n_levels - 1:
@@ -244,45 +314,34 @@ class UNet2DCondition(nn.Module):
         shallow = deep_feature is not None
         if shallow and cache_split is None:
             raise ValueError("deep_feature requires cache_split")
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
-        t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
-                                   cfg.flip_sin_to_cos, cfg.freq_shift)
-        temb = self.time_embedding(t_emb.to(dtype))
-        if cfg.addition_embed_dim is not None:
-            if text_embeds is None or time_ids is None:
-                raise ValueError("this UNet config requires text_embeds and "
-                                 "time_ids (SDXL text_time conditioning)")
-            ids_emb = timestep_embedding(
-                time_ids.reshape(-1), cfg.addition_embed_dim,
-                cfg.flip_sin_to_cos, cfg.freq_shift).reshape(
-                    sample.shape[0], -1)
-            add = torch.cat([text_embeds.float(), ids_emb], dim=-1)
-            temb = temb + self.add_embedding(add.to(dtype))
-        elif text_embeds is not None or time_ids is not None:
-            raise ValueError("text_embeds/time_ids given to a UNet without "
-                             "text_time conditioning (addition_embed_dim)")
+        if (ctrl_down is not None or ctrl_mid is not None) and (
+                cache_split is not None):
+            raise ValueError("ControlNet residuals (ctrl_down/ctrl_mid) "
+                             "cannot combine with DeepCache (cache_split): "
+                             "the shallow pass has no deep skips")
+        temb = self.embed_time(timesteps, sample.shape[0], text_embeds,
+                               time_ids)
         ctx = encoder_hidden_states.to(dtype)
+        if ip_context is not None:
+            ctx = (ctx, ip_context.to(dtype), ip_scale)
 
         x = self.conv_in(sample.to(dtype))
-        skips = [x]
-        down = self.down_blocks[:cache_split] if shallow else self.down_blocks
-        for level, blk in enumerate(down):
-            for j in range(len(blk.resnets)):
-                x = blk.layer(j, x, temb, ctx)
-                skips.append(x)
-            # the shallow pass skips the downsample that feeds only the trunk
-            if hasattr(blk, "downsamplers") and not (
-                    shallow and level == cache_split - 1):
-                x = blk.downsamplers[0](x)
-                skips.append(x)
+        x, skips = self.run_down(x, temb, ctx,
+                                 cache_split if shallow else None,
+                                 skip_last_downsample=shallow)
+        if ctrl_down is not None:
+            if len(ctrl_down) != len(skips):
+                raise ValueError(f"expected {len(skips)} ControlNet down "
+                                 f"residuals (ctrl_down), got "
+                                 f"{len(ctrl_down)}")
+            skips = [s + r.to(dtype) for s, r in zip(skips, ctrl_down)]
 
         if shallow:
             x = deep_feature.to(dtype)
         else:
-            x = self.mid_block.resnets[0](x, temb)
-            x = self.mid_block.attentions[0](x, ctx)
-            x = self.mid_block.resnets[1](x, temb)
+            x = self.run_mid(x, temb, ctx)
+            if ctrl_mid is not None:
+                x = x + ctrl_mid.to(dtype)
 
         deep_out = None
         for i, blk in enumerate(self.up_blocks):

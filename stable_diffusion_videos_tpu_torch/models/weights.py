@@ -18,9 +18,22 @@
   ``(C, C)`` (SD 2.x and SDXL, ``use_linear_projection``).
 * ``random_state_dict(module, seed, std, dtype)`` draws every parameter
   N(0, std) from a numpy seed, one tensor at a time.
+* ``read_safetensors(path)`` reads a ``.safetensors`` file with no package
+  (an 8-byte little-endian header length, a JSON header with
+  ``__metadata__``, then the raw tensors); ``read_weights(path)`` takes that
+  or a ``torch.load`` pickle, the formats the add-on files ship in.
+* ``shared_copy(module)`` copies a module's structure around the same
+  parameter tensors, so an adapter merged into the copy leaves the original
+  untouched without a second copy of its weights.
 """
 
 from __future__ import annotations
+
+import copy
+import itertools
+import json
+import struct
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,14 +97,14 @@ def _transformer(p, pfx, depth, out):
         _lin(blk["ff"]["proj_out"], f"{b}.ff.net.2", out)
 
 
-def _unet(p, config: UNetConfig, out):
+def unet_trunk(p, config: UNetConfig, out):
+    """conv_in, the time (and text_time) embeddings, the down path and the
+    mid block: the part a diffusers ControlNetModel shares with the UNet."""
     _conv(p["conv_in"], "conv_in", out)
     for mlp in ("time_embedding", "add_embedding"):
         if mlp in p:  # add_embedding: SDXL text_time
             _lin(p[mlp]["linear_1"], f"{mlp}.linear_1", out)
             _lin(p[mlp]["linear_2"], f"{mlp}.linear_2", out)
-    _gn32(p["conv_norm_out"], "conv_norm_out", out)
-    _conv(p["conv_out"], "conv_out", out)
     n = len(config.block_out_channels)
     for level in range(n):
         for j in range(config.layers_per_block):
@@ -108,6 +121,13 @@ def _unet(p, config: UNetConfig, out):
     _transformer(p["mid_attn"], "mid_block.attentions.0",
                  config.depth(n - 1), out)
     _resnet(p["mid_res_1"], "mid_block.resnets.1", out)
+
+
+def _unet(p, config: UNetConfig, out):
+    unet_trunk(p, config, out)
+    _gn32(p["conv_norm_out"], "conv_norm_out", out)
+    _conv(p["conv_out"], "conv_out", out)
+    n = len(config.block_out_channels)
     for i in range(n):
         level = n - 1 - i
         for j in range(config.layers_per_block + 1):
@@ -271,3 +291,71 @@ def random_state_dict(module: nn.Module, seed: int, std: float,
         w = rng.standard_normal(tuple(v.shape), dtype=np.float32) * std
         out[k] = w if dtype is None else torch.from_numpy(w).to(dtype)
     return out
+
+
+def shared_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` whose parameters and buffers are the original's
+    tensors: replacing or adding a submodule or parameter on the copy leaves
+    the original as it was."""
+    memo = {id(t): t for t in itertools.chain(module.parameters(),
+                                              module.buffers())}
+    return copy.deepcopy(module, memo)
+
+
+# ---------------------------------------------------------------------------
+# weight files
+# ---------------------------------------------------------------------------
+
+#: the safetensors dtypes the add-on files use
+SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                      "BF16": torch.bfloat16, "I64": torch.int64}
+
+
+def read_safetensors(path) -> tuple[dict[str, torch.Tensor], dict]:
+    """A ``.safetensors`` file -> ({name: CPU tensor}, ``__metadata__``).
+    The tensors are views of one buffer holding the file."""
+    data = bytearray(Path(path).read_bytes())
+    if len(data) < 8:
+        raise ValueError(f"{path}: too short for a safetensors file")
+    (n,) = struct.unpack("<Q", data[:8])
+    header = json.loads(data[8:8 + n].decode("utf-8"))
+    meta = header.pop("__metadata__", None) or {}
+    base = 8 + n
+    out = {}
+    for name, info in header.items():
+        dtype = SAFETENSORS_DTYPES.get(info["dtype"])
+        if dtype is None:
+            raise ValueError(f"{path}: tensor {name} has dtype "
+                             f"{info['dtype']}, not one of "
+                             f"{sorted(SAFETENSORS_DTYPES)}")
+        start, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        size = torch.empty((), dtype=dtype).element_size()
+        count = int(np.prod(shape)) if shape else 1
+        if end - start != count * size:
+            raise ValueError(f"{path}: tensor {name} spans {end - start} "
+                             f"bytes, its shape {shape} needs {count * size}")
+        t = (torch.frombuffer(data, dtype=dtype, count=count,
+                              offset=base + start) if count
+             else torch.empty(0, dtype=dtype))
+        out[name] = t.reshape(shape)
+    return out, meta
+
+
+def read_weights(path) -> dict:
+    """A weight file -> its dict: ``.safetensors`` through
+    ``read_safetensors``, anything else through ``torch.load`` (tensors
+    only, on the CPU)."""
+    if Path(path).suffix == ".safetensors":
+        return read_safetensors(path)[0]
+    return torch.load(str(path), map_location="cpu", weights_only=True)
+
+
+def find_weights_file(directory) -> Path:
+    """The weights file of a diffusers/transformers model directory: the
+    first ``.safetensors``, else ``.bin``, ``.pth`` or ``.pt``, by name."""
+    for pattern in ("*.safetensors", "*.bin", "*.pth", "*.pt"):
+        hits = sorted(Path(directory).glob(pattern))
+        if hits:
+            return hits[0]
+    raise FileNotFoundError(f"no weights file found under {directory}")

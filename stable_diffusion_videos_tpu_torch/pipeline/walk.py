@@ -24,9 +24,21 @@ nearest-exact sampling, pixel ``f·i + f/2``, as the JAX package's
 ``jax.image.resize(..., "nearest")``) and ``vid2vid`` (batched img2img
 over a video's frames with one shared re-noising field, or per-frame fields
 keyed by the absolute frame index under ``frozen_noise``, and an optional
-causal EMA of the source latents).  Options of the JAX pipeline this port
-does not have yet (upsampling, the safety checker, FreeU, ToMe, prompt
-weighting, ControlNet, IP-Adapter) raise when they are asked for.
+causal EMA of the source latents).
+
+The conditioning add-ons: ``controlnet=`` (a model directory or file, a
+bundle, or a list for multi-ControlNet) with a ``control_image`` that pins
+every frame of a clip or a per-frame sequence, vid2vid's ``control_video``
+or ``control_from_source`` ("canny" edges or the frame itself);
+``ip_adapter=`` (a checkpoint, or (checkpoint, image-encoder directory))
+with ``ip_image``; ``prompt_weighting=True`` (emphasis syntax and prompts of
+several 77-token windows; cond, uncond and both clip endpoints share one
+window count, and SDXL's pooled embedding comes from the prompt without its
+syntax).  LoRA and textual-inversion files merge into an ``SDModels`` before
+the pipeline is built (``models/lora_file.py``,
+``models/textual_inversion.py``).  Options of the JAX pipeline this port
+does not have yet (upsampling, the safety checker, FreeU, ToMe) raise when
+they are asked for.
 """
 
 from __future__ import annotations
@@ -44,28 +56,24 @@ import torch
 
 from ..audio.analysis import get_timesteps_arr, load_audio
 from ..core.interp import lerp, slerp
+from ..core.prompt_weighting import chunks_needed, strip_prompt_weights
 from ..core.rng import noise_for_seed
 from ..media.png import write_png
 from ..media.video import (FrameWriter, iter_frames, probe_video,
                            read_video_frames)
 from ..media.video import make_video as assemble
 from ..models.bundle import SDModels
+from ..models.controlnet import load_controlnet
+from ..models.ip_adapter import load_ip_adapter
 from ..runtime.engine import Engine, refuse_unported
 
 logger = logging.getLogger("sdv_torch")
 
-_PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety",
-                      "prompt_weighting", "controlnet", "freeu",
-                      "ip_adapter", "tome", "mesh")
-_FRAMES_UNPORTED = ("upsample", "upsample_weights", "control_image",
-                    "ip_image")
-_WALK_UNPORTED = ("upsample", "upsample_weights", "control_image",
-                  "ip_image", "params", "jit")
-_IMG2IMG_UNPORTED = ("control_image", "controlnet_scale", "ip_image",
-                     "ip_scale")
-_VID2VID_UNPORTED = ("control_video", "controlnet_scale",
-                     "control_from_source", "canny_thresholds", "ip_image",
-                     "ip_scale")
+_PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety", "freeu",
+                      "tome", "mesh")
+_FRAMES_UNPORTED = ("upsample", "upsample_weights")
+_WALK_UNPORTED = ("upsample", "upsample_weights", "params", "jit")
+_IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
 
 def dispatch_seed(seed_a: int, seed_b: int, batch_idx: int) -> int:
@@ -114,6 +122,55 @@ def latent_mask(mask, lh: int, lw: int) -> torch.Tensor:
         size=(lh, lw), mode="nearest-exact")[0, 0]
 
 
+def load_control_image(image, height: int, width: int) -> np.ndarray:
+    """A path, PIL image or array -> (1, height, width, 3) float32 in [0,
+    1], a ControlNet map (canny, depth and pose maps are plain images); a
+    path or PIL image is resized (bilinear), an array must have the size."""
+    from PIL import Image
+    if isinstance(image, (str, Path)):
+        image = Image.open(image)
+    if isinstance(image, Image.Image):
+        image = np.asarray(image.convert("RGB").resize(
+            (width, height), Image.BILINEAR))
+    image = np.asarray(image, np.float32)
+    if image.max() > 1.5:  # uint8 range
+        image = image / 255.0
+    if image.ndim == 3:
+        image = image[None]
+    if image.shape[1:3] != (height, width):
+        raise ValueError(f"control image is {image.shape[1:3]}, expected "
+                         f"({height}, {width}): pass a path or PIL image to "
+                         "resize it")
+    return image
+
+
+def load_control_source(source, height: int, width: int) -> np.ndarray:
+    """A ControlNet source -> (N, height, width, 3) float32: one map (N =
+    1, ``load_control_image``'s inputs) that pins every frame, or a
+    per-frame sequence, a directory of images (sorted by name) or an (N, H,
+    W, 3) array."""
+    if isinstance(source, (str, Path)) and Path(source).is_dir():
+        files = sorted(p for p in Path(source).iterdir()
+                       if p.suffix.lower() in _IMAGE_SUFFIXES)
+        if not files:
+            raise ValueError(f"control directory {source} has no images")
+        return np.concatenate([load_control_image(f, height, width)
+                               for f in files])
+    if getattr(source, "ndim", 0) == 4 and source.shape[0] > 1:
+        return np.concatenate([load_control_image(a, height, width)
+                               for a in np.asarray(source)])
+    return load_control_image(source, height, width)
+
+
+def canny_map(frame: np.ndarray, thresholds=(100, 200)) -> np.ndarray:
+    """A uint8 (H, W, 3) frame -> its cv2 Canny edges as an (H, W, 3)
+    float32 map in [0, 1]."""
+    import cv2
+    lo, hi = thresholds
+    edges = cv2.Canny(frame, int(lo), int(hi))
+    return np.repeat(edges[..., None], 3, axis=2).astype(np.float32) / 255.0
+
+
 def to_pil(frames: np.ndarray) -> list:
     """uint8 (B, H, W, 3) -> PIL images."""
     from PIL import Image
@@ -127,20 +184,41 @@ class StableDiffusionWalkPipeline:
                  step_cache_split: int = 1,
                  step_cache_policy: str = "uniform",
                  guidance_rescale: float = 0.0, guidance_interval=None,
-                 frozen_noise: bool = False, **unported):
+                 frozen_noise: bool = False, prompt_weighting: bool = False,
+                 controlnet=None, ip_adapter=None, **unported):
+        """``controlnet``: a diffusers ControlNetModel directory or weights
+        file, a ``ControlNetBundle``, or a list of them (multi-ControlNet).
+        ``ip_adapter``: an IP-Adapter checkpoint, ``(checkpoint,
+        image-encoder directory)`` or an ``IPAdapter``.
+        ``prompt_weighting``: read prompts in the emphasis syntax and let
+        them run past 77 tokens (off by default, so that parentheses in a
+        prompt stay literal)."""
         refuse_unported("StableDiffusionWalkPipeline", _PIPELINE_UNPORTED,
                         unported)
         if fast:
             # the JAX package's presets, explicit kwargs win: SD 1.x/2.x
             # step_cache=3 x guidance_interval (0.1, 0.85); SDXL
-            # step_cache=2 alone
-            if step_cache is None:
+            # step_cache=2 alone; a ControlNet keeps the interval alone,
+            # since step caching cannot take its residuals
+            if step_cache is None and controlnet is None:
                 step_cache = 2 if models.is_xl else 3
             if guidance_interval is None and not models.is_xl:
                 guidance_interval = (0.1, 0.85)
         self.fast = bool(fast)
-        self.models = models
         self.device = torch.device(device)
+        if controlnet is not None:
+            nets = (controlnet if isinstance(controlnet, (list, tuple))
+                    else [controlnet])
+            nets = [load_controlnet(c, models.dtype)
+                    if isinstance(c, (str, Path)) else c for c in nets]
+            controlnet = nets if isinstance(controlnet, (list, tuple)) \
+                else nets[0]
+        if isinstance(ip_adapter, (str, Path)):
+            ip_adapter = load_ip_adapter(ip_adapter, models)
+        elif isinstance(ip_adapter, tuple):
+            ip_adapter = load_ip_adapter(ip_adapter[0], models,
+                                         image_encoder=ip_adapter[1])
+        self.prompt_weighting = bool(prompt_weighting)
         self.engine = Engine(models, self.device, scheduler=scheduler,
                              batch_bucket=batch_bucket,
                              step_cache=step_cache,
@@ -148,7 +226,11 @@ class StableDiffusionWalkPipeline:
                              step_cache_policy=step_cache_policy,
                              guidance_rescale=guidance_rescale,
                              guidance_interval=guidance_interval,
-                             frozen_noise=frozen_noise)
+                             frozen_noise=frozen_noise,
+                             controlnet=controlnet, ip_adapter=ip_adapter)
+        #: the engine's bundle (with an IP-Adapter, its UNet carries the
+        #: adapter's projections)
+        self.models = self.engine.models
 
     @classmethod
     def tiny(cls, device: torch.device, seed: int = 0,
@@ -170,6 +252,41 @@ class StableDiffusionWalkPipeline:
         """Prompt -> (1, 77, D) embedding on the device."""
         return self.engine.embed_text(text)
 
+    def _embed(self, prompt: str, num_chunks: Optional[int] = None):
+        """One prompt's context: weighted at ``num_chunks`` windows under
+        ``prompt_weighting``, else plain."""
+        if self.prompt_weighting:
+            return self.engine.embed_text_weighted(prompt, num_chunks)
+        return self.engine.embed_text(prompt)
+
+    def _num_chunks(self, *prompts) -> Optional[int]:
+        """The window count that every prompt of one dispatch shares under
+        ``prompt_weighting`` (cond and uncond concatenate into one CFG
+        batch), else None."""
+        if not self.prompt_weighting:
+            return None
+        return max(chunks_needed(self.models.tokenizer, p or "")
+                   for p in prompts)
+
+    def _pooled(self, prompt: str) -> torch.Tensor:
+        """SDXL's pooled embedding, of the prompt without its emphasis
+        syntax under ``prompt_weighting`` (the pooled vector has no token
+        axis to weight)."""
+        if self.prompt_weighting:
+            prompt = strip_prompt_weights(prompt)
+        return self.engine.embed_text_pooled(prompt)
+
+    def _ip_kwargs(self, ip_image, ip_scale: float = 1.0) -> dict:
+        """One image prompt -> the engine's ``ip_tokens``/``ip_scale``,
+        computed once a call and reused by every dispatch."""
+        if ip_image is None:
+            return {}
+        if self.engine.ip is None:
+            raise ValueError("ip_image= requires a pipeline built with "
+                             "ip_adapter= (see models/ip_adapter.py)")
+        return dict(ip_tokens=self.engine.ip.image_tokens(ip_image),
+                    ip_scale=float(ip_scale))
+
     def init_noise(self, seed: int, noise_shape) -> torch.Tensor:
         """Seeded latent noise of the NHWC ``noise_shape``, on the device
         (the torch-CPU stream of the JAX package's default)."""
@@ -183,13 +300,15 @@ class StableDiffusionWalkPipeline:
         return (1, height // f, width // f, c)
 
     def generate_inputs(self, prompt_a: str, prompt_b: str, seed_a, seed_b,
-                        noise_shape, T, batch_size: int):
+                        noise_shape, T, batch_size: int,
+                        num_chunks: Optional[int] = None):
         """Interpolated (embeds, noise, pooled) batches for one clip: the
         whole trajectory is built at once, then cut into dispatch batches.
         ``pooled`` is None but for SDXL, whose pooled embedding walks the
-        same lerp trajectory."""
-        embeds_a = self.engine.embed_text(prompt_a)
-        embeds_b = self.engine.embed_text(prompt_b)
+        same lerp trajectory.  Under ``prompt_weighting`` the endpoints are
+        weighted contexts of ``num_chunks`` windows."""
+        embeds_a = self._embed(prompt_a, num_chunks)
+        embeds_b = self._embed(prompt_b, num_chunks)
         noise_a = self.init_noise(seed_a, noise_shape)
         noise_b = self.init_noise(seed_b, noise_shape)
         T = np.asarray(T, np.float32)
@@ -197,8 +316,8 @@ class StableDiffusionWalkPipeline:
         noise = slerp(T, noise_a[0], noise_b[0])
         pooled = None
         if self.models.is_xl:
-            pooled = lerp(T, self.engine.embed_text_pooled(prompt_a)[0],
-                          self.engine.embed_text_pooled(prompt_b)[0])
+            pooled = lerp(T, self._pooled(prompt_a)[0],
+                          self._pooled(prompt_b)[0])
         for i in range(0, len(T), batch_size):
             yield (embeds[i:i + batch_size], noise[i:i + batch_size],
                    None if pooled is None else pooled[i:i + batch_size])
@@ -216,7 +335,9 @@ class StableDiffusionWalkPipeline:
                          image_file_ext: str = ".png", T=None, skip: int = 0,
                          negative_prompt: Optional[str] = None,
                          step: Optional[tuple] = None, frame_sink=None,
-                         noise_key: Optional[int] = None, **unported):
+                         noise_key: Optional[int] = None,
+                         control_image=None, controlnet_scale=1.0,
+                         ip_image=None, ip_scale: float = 1.0, **unported):
         """Generate and save the frames of one prompt-pair clip.
 
         ``noise_key``: the seed of every dispatch's transition-noise
@@ -225,12 +346,33 @@ class StableDiffusionWalkPipeline:
         clip boundaries).  Without it each dispatch's seed mixes both clip
         seeds and the batch index (the batch index is 0 under
         ``frozen_noise``), so clips that share ``seed_a`` draw decoupled
-        noise."""
+        noise.
+
+        ``control_image`` (a pipeline with ``controlnet=``): a map (path,
+        PIL image or array) that pins every frame of the clip, a directory
+        or (N, H, W, 3) array of ``num_interpolation_steps`` per-frame maps,
+        or a list of either for several nets, at ``controlnet_scale``.
+        ``ip_image`` (a pipeline with ``ip_adapter=``): the image prompt of
+        every frame, at ``ip_scale``."""
         refuse_unported("make_clip_frames", _FRAMES_UNPORTED, unported)
         if image_file_ext != ".png":
             raise ValueError("the PyTorch package writes .png frames only")
         height = height or self.models.default_size
         width = width or self.models.default_size
+        control = None
+        if control_image is not None:
+            if self.engine.controlnet is None:
+                raise ValueError("control_image= requires a pipeline built "
+                                 "with controlnet=")
+            srcs = (list(control_image)
+                    if isinstance(control_image, (list, tuple))
+                    else [control_image])
+            control = [load_control_source(c, height, width) for c in srcs]
+            for c in control:
+                if c.shape[0] not in (1, num_interpolation_steps):
+                    raise ValueError(
+                        f"control sequence has {c.shape[0]} frames; the "
+                        f"clip has {num_interpolation_steps}")
         save_path = Path(save_path)
         save_path.mkdir(parents=True, exist_ok=True)
         T = np.asarray(T if T is not None
@@ -240,12 +382,14 @@ class StableDiffusionWalkPipeline:
                 f"len(T) ({T.shape[0]}) != num_interpolation_steps "
                 f"({num_interpolation_steps})")
         T = T[skip:]
-        uncond = self.engine.embed_text(negative_prompt or "")
-        uncond_pooled = (self.engine.embed_text_pooled(negative_prompt or "")
-                         if self.models.is_xl else None)
+        neg = negative_prompt or ""
+        num_chunks = self._num_chunks(prompt_a, prompt_b, neg)
+        uncond = self._embed(neg, num_chunks)
+        uncond_pooled = self._pooled(neg) if self.models.is_xl else None
+        ip_kw = self._ip_kwargs(ip_image, ip_scale)
         batches = self.generate_inputs(prompt_a, prompt_b, seed_a, seed_b,
                                        self._latent_shape(height, width), T,
-                                       batch_size)
+                                       batch_size, num_chunks)
         save_futures = []
 
         def drain(pool, pending):
@@ -278,7 +422,14 @@ class StableDiffusionWalkPipeline:
                     generator=torch.Generator(self.device).manual_seed(
                         noise_seed),
                     output_dtype="uint8", pooled=pooled,
-                    uncond_pooled=uncond_pooled)
+                    uncond_pooled=uncond_pooled,
+                    control=None if control is None else [
+                        # a sequence follows the absolute frame index, one
+                        # map broadcasts over the batch
+                        c if c.shape[0] == 1
+                        else c[frame_index:frame_index + len(noise)]
+                        for c in control],
+                    control_scale=controlnet_scale, **ip_kw)
                 # overlap: save the previous batch while this one computes
                 if pending is not None:
                     drain(pool, pending)
@@ -294,36 +445,47 @@ class StableDiffusionWalkPipeline:
     # ------------------------------------------------------------------
     def _cond_uncond(self, prompt: str, negative_prompt, batch: int) -> dict:
         """The engine's text arguments for ``batch`` rows of one prompt:
-        cond, uncond and, for SDXL, the pooled pair."""
+        cond, uncond (weighted, at one window count, under
+        ``prompt_weighting``) and, for SDXL, the pooled pair."""
         neg = negative_prompt or ""
-        cond = self.engine.embed_text(prompt)
+        n = self._num_chunks(prompt, neg)
+        cond = self._embed(prompt, n)
         out = dict(cond=cond.expand((batch,) + tuple(cond.shape[1:])),
-                   uncond=self.engine.embed_text(neg))
+                   uncond=self._embed(neg, n))
         if self.models.is_xl:
-            pooled = self.engine.embed_text_pooled(prompt)
+            pooled = self._pooled(prompt)
             out.update(pooled=pooled.expand(
                 (batch,) + tuple(pooled.shape[1:])),
-                uncond_pooled=self.engine.embed_text_pooled(neg))
+                uncond_pooled=self._pooled(neg))
         return out
 
     def img2img(self, image, prompt: str, strength: float = 0.75,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 eta: float = 0.0, negative_prompt: Optional[str] = None,
-                seed: int = 0, output_type: str = "pil", **unported):
+                seed: int = 0, output_type: str = "pil", control_image=None,
+                controlnet_scale=1.0, ip_image=None, ip_scale: float = 1.0):
         """Image-to-image: encode ``image`` (PIL, or (H, W, 3) / (B, H, W,
         3) uint8 or [0, 1]), re-noise it to ``strength`` of the schedule
-        and denoise toward ``prompt``.  -> PIL images, or with another
-        ``output_type`` float32 (B, H, W, 3) frames in [0, 1]."""
-        refuse_unported("img2img", _IMG2IMG_UNPORTED, unported)
+        and denoise toward ``prompt``, under ``control_image`` (one map at
+        the image's size) and ``ip_image`` as ``make_clip_frames`` takes
+        them.  -> PIL images, or with another ``output_type`` float32 (B,
+        H, W, 3) frames in [0, 1]."""
         arr = image_array(image)
         latents = self.engine.encode_image(arr * 2.0 - 1.0)
+        ctrl_kw = {}
+        if control_image is not None:
+            f = self.models.vae_scale_factor
+            ctrl_kw = dict(control=load_control_image(
+                control_image, latents.shape[1] * f, latents.shape[2] * f),
+                control_scale=controlnet_scale)
         images = self.engine.img2img(
             init_latents=latents, strength=strength,
             num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, eta=eta,
             generator=torch.Generator(self.device).manual_seed(int(seed)),
             output_dtype="uint8" if output_type == "pil" else "float32",
-            **self._cond_uncond(prompt, negative_prompt, len(arr)))
+            **self._cond_uncond(prompt, negative_prompt, len(arr)),
+            **ctrl_kw, **self._ip_kwargs(ip_image, ip_scale))
         return to_pil(images) if output_type == "pil" else images
 
     def inpaint(self, image, mask, prompt: str,
@@ -356,7 +518,11 @@ class StableDiffusionWalkPipeline:
                 output_filepath: str = "vid2vid.mp4",
                 audio_filepath: Optional[str] = None,
                 shared_noise: bool = True, latent_ema: float = 0.0,
-                output_type: str = "video", **unported):
+                output_type: str = "video", control_video=None,
+                controlnet_scale=1.0,
+                control_from_source: Optional[str] = None,
+                canny_thresholds=(100, 200), ip_image=None,
+                ip_scale: float = 1.0):
         """Video-to-video restyling: batched img2img over the frames of
         ``video`` (a video file, read by ``read_video_frames``; a directory
         of PNG frames; a (T, H, W, 3) array; or any iterable of frames),
@@ -377,10 +543,30 @@ class StableDiffusionWalkPipeline:
         (z̃_i = (1 - a)·z_i + a·z̃_{i-1}) before re-noising.
         ``output_type``: "video" (writes ``output_filepath``, with
         ``audio_filepath`` muxed, and returns its path) or "frames" (PIL
-        images).  An abort closes and deletes the half-written video."""
-        refuse_unported("vid2vid", _VID2VID_UNPORTED, unported)
+        images).  An abort closes and deletes the half-written video.
+
+        ControlNet (a pipeline with ``controlnet=``): ``control_video`` (a
+        video file, a directory of maps, one image or an (N, H, W, 3)
+        array; one map pins every frame, else map i conditions frame i,
+        the last map held past the sequence's end; an array video source
+        needs ``height`` and ``width``), or ``control_from_source``, each
+        source frame's map made on the fly: "canny" (cv2 edges at
+        ``canny_thresholds``) or "identity" (the frame itself); weighted by
+        ``controlnet_scale``.  ``ip_image``/``ip_scale``: the image prompt
+        of every frame."""
         if not 0.0 <= latent_ema < 1.0:
             raise ValueError("latent_ema must be in [0, 1)")
+        if (control_video is not None or control_from_source is not None) \
+                and self.engine.controlnet is None:
+            raise ValueError("control_video/control_from_source require a "
+                             "pipeline built with controlnet=")
+        if control_from_source is not None:
+            if control_video is not None:
+                raise ValueError("control_video and control_from_source "
+                                 "are mutually exclusive")
+            if control_from_source not in ("canny", "identity"):
+                raise ValueError(f"control_from_source must be 'canny' or "
+                                 f"'identity', got {control_from_source!r}")
         batch_size = batch_size or self.models.default_batch_size
         grain = self.models.vae_scale_factor * 8
 
@@ -412,9 +598,22 @@ class StableDiffusionWalkPipeline:
                         return
             frames = prepared()
         fps = fps or src_fps or 30.0
+        ctrl_maps = None
+        if control_video is not None:
+            if (isinstance(control_video, (str, Path))
+                    and Path(control_video).is_file()):
+                # a video file is decoded once the frame size is known
+                ctrl_maps = control_video
+            elif height is None or width is None:
+                raise ValueError("pass height and width when control_video "
+                                 "is used with an array or list video "
+                                 "source")
+            else:
+                ctrl_maps = load_control_source(control_video, height, width)
         audio, sr = None, 22050
         if audio_filepath:
             audio, sr = load_audio(audio_filepath, sr=sr)
+        ip_kw = self._ip_kwargs(ip_image, ip_scale)
 
         args, noise, writer, ema = None, None, None, None
         out_frames: list = []
@@ -422,7 +621,7 @@ class StableDiffusionWalkPipeline:
         c = self.models.unet_config.in_channels
 
         def flush(batch):
-            nonlocal args, noise, writer, frame_idx, ema
+            nonlocal args, noise, writer, frame_idx, ema, ctrl_maps
             B = len(batch)
             arr = np.stack(batch).astype(np.float32) / 255.0
             if args is None or args["cond"].shape[0] != B:
@@ -443,12 +642,32 @@ class StableDiffusionWalkPipeline:
                                     (1, lh, lw, c)) for j in range(B)])
             key = int(seed) * 9973 + (0 if self.engine.frozen_noise
                                       else frame_idx)
+            ctrl_kw = {}
+            if control_from_source is not None:
+                ctrl_kw = dict(control=np.stack([
+                    canny_map(fr, canny_thresholds)
+                    if control_from_source == "canny"
+                    else fr.astype(np.float32) / 255.0 for fr in batch]),
+                    control_scale=controlnet_scale)
+            elif ctrl_maps is not None:
+                if not isinstance(ctrl_maps, np.ndarray):
+                    # the control video, at the output's size and cadence
+                    ctrl_maps = np.stack([
+                        m.astype(np.float32) / 255.0 for m in
+                        read_video_frames(ctrl_maps, size=(height, width),
+                                          frame_skip=frame_skip,
+                                          max_frames=max_frames)])
+                idx = np.minimum(np.arange(frame_idx, frame_idx + B),
+                                 len(ctrl_maps) - 1)
+                ctrl_kw = dict(control=ctrl_maps[idx],
+                               control_scale=controlnet_scale)
             images = self.engine.img2img(
                 init_latents=latents, strength=strength,
                 num_inference_steps=num_inference_steps,
                 guidance_scale=guidance_scale,
                 generator=torch.Generator(self.device).manual_seed(key),
-                noise=batch_noise, output_dtype="uint8", **args)
+                noise=batch_noise, output_dtype="uint8", **args, **ctrl_kw,
+                **ip_kw)
             for img in images:
                 if output_type == "frames":
                     out_frames.append(img)
@@ -510,9 +729,15 @@ class StableDiffusionWalkPipeline:
              resume: bool = False, audio_filepath: Optional[str] = None,
              audio_start_sec: Optional[float] = None, margin: float = 1.0,
              smooth: float = 0.0, negative_prompt: Optional[str] = None,
-             make_video: bool = True, **unported) -> str:
+             make_video: bool = True, control_image=None,
+             controlnet_scale=1.0, ip_image=None, ip_scale: float = 1.0,
+             **unported) -> str:
         """Generate a video walking through prompt/seed pairs.  Returns the
-        final video path, or the run directory when ``make_video=False``."""
+        final video path, or the run directory when ``make_video=False``.
+        ``control_image``/``controlnet_scale`` and ``ip_image``/``ip_scale``
+        condition every clip as ``make_clip_frames`` describes; a control
+        image given as a path (or list of paths) is recorded in
+        ``prompt_config.json``, so a resume picks it up."""
         refuse_unported("walk", _WALK_UNPORTED, unported)
         height = height or self.models.default_size
         width = width or self.models.default_size
@@ -533,6 +758,9 @@ class StableDiffusionWalkPipeline:
                 raise ValueError("#prompts must equal #seeds")
             if len(prompts) < 2:
                 raise ValueError("need at least 2 prompts to walk between")
+        if control_image is not None and self.engine.controlnet is None:
+            raise ValueError("control_image= requires a pipeline built with "
+                             "controlnet=")
         save_path_root.mkdir(parents=True, exist_ok=True)
 
         config_path = save_path_root / "prompt_config.json"
@@ -542,10 +770,10 @@ class StableDiffusionWalkPipeline:
                     f"resume=True but {config_path} does not exist; provide "
                     "the `name` of a previous run")
             data = json.loads(config_path.read_text())
-            if data.get("upsample") or data.get("control_image"):
+            if data.get("upsample"):
                 raise NotImplementedError(
-                    "this run used upsampling or ControlNet, which the "
-                    "PyTorch package does not have yet")
+                    "this run used upsampling, which the PyTorch package "
+                    "does not have yet")
             prompts, seeds = data["prompts"], data["seeds"]
             num_interpolation_steps = data["num_interpolation_steps"]
             fps = data["fps"]
@@ -557,6 +785,9 @@ class StableDiffusionWalkPipeline:
             margin = data.get("margin", 1.0)
             smooth = data.get("smooth", 0.0)
             negative_prompt = data.get("negative_prompt")
+            if control_image is None and data.get("control_image"):
+                control_image = data["control_image"]
+            controlnet_scale = data.get("controlnet_scale", controlnet_scale)
             logger.info("resuming %s", save_path_root)
 
         if isinstance(num_interpolation_steps, int):
@@ -576,7 +807,16 @@ class StableDiffusionWalkPipeline:
                 audio_filepath=audio_filepath,
                 audio_start_sec=audio_start_sec, margin=margin,
                 smooth=smooth, negative_prompt=negative_prompt,
-                control_image=None, controlnet_scale=1.0,
+                # only paths can be resumed from (arrays are not JSON)
+                control_image=(
+                    str(control_image)
+                    if isinstance(control_image, (str, Path))
+                    else [str(c) for c in control_image]
+                    if (isinstance(control_image, (list, tuple))
+                        and all(isinstance(c, (str, Path))
+                                for c in control_image))
+                    else None),
+                controlnet_scale=controlnet_scale,
                 scheduler=self.engine.scheduler_name, tiled=False,
                 framework="stable_diffusion_videos_tpu_torch",
             ), indent=4, sort_keys=True))
@@ -646,7 +886,10 @@ class StableDiffusionWalkPipeline:
                         image_file_ext=image_file_ext, T=T, skip=skip,
                         negative_prompt=negative_prompt,
                         step=(i, len(clip_pairs)), frame_sink=frame_sink,
-                        noise_key=walk_noise_key)
+                        noise_key=walk_noise_key,
+                        control_image=control_image,
+                        controlnet_scale=controlnet_scale,
+                        ip_image=ip_image, ip_scale=ip_scale)
                     if frame_sink is not None:
                         frame_sink.close()
                 except BaseException:

@@ -25,6 +25,14 @@ sliced on a copy) and ``inpaint`` (the known region put back at each step's
 post-step noise level).  The SDXL refiner conditions on its one tower
 (bigG) and takes 5 time ids with the aesthetic score.
 
+The conditioning add-ons: ControlNet (one or several nets, their residuals
+summed each step, ``guess_mode`` steering the cond half only; not with step
+caching), IP-Adapter (its projections spliced into a copy of the UNet, the
+image tokens CFG-stacked beside the context, the uncond half the projection
+of a zero embedding, ``ip_scale`` 0 when a dispatch has no image) and
+weighted prompts (``embed_text_weighted``: emphasis syntax and 77·n-token
+contexts).
+
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
 """
@@ -38,12 +46,13 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
+from ..core.prompt_weighting import apply_token_weights, encode_weighted
 from ..core.schedulers import get_scheduler
 from ..core.schedulers.base import transition_noise
 from ..models.bundle import SDModels
 
 #: JAX Engine options this port does not have yet
-UNPORTED = ("controlnet", "ip_adapter", "mesh", "spatial_shard", "debug")
+UNPORTED = ("mesh", "spatial_shard", "debug")
 #: samplers whose tables carry a multistep warm-up: img2img rebuilds their
 #: tables from the entry index instead of slicing them
 WARMUP_SAMPLERS = ("pndm", "lms", "unipc")
@@ -93,7 +102,7 @@ class Engine:
                  guidance_interval: Optional[tuple] = None,
                  frozen_noise: bool = False, tiny_decoder: bool = False,
                  vae_tile: Optional[int] = None, vae_tile_overlap: int = 16,
-                 **unported):
+                 controlnet=None, ip_adapter=None, **unported):
         refuse_unported("Engine", UNPORTED, unported)
         if models.is_xl and models.unet_config.addition_num_ids not in (5, 6):
             raise ValueError("text_time takes 6 ids (SDXL-base) or 5 (the "
@@ -121,7 +130,34 @@ class Engine:
             guidance_interval = (lo, hi) if (lo, hi) != (0.0, 1.0) else None
         self.device = torch.device(device)
         #: the bundle's modules are moved to ``device`` in place
-        self.models = models.to(self.device)
+        models = models.to(self.device)
+        #: IP-Adapter image prompting (``models/ip_adapter.py``): its K/V
+        #: projections spliced into a copy of the UNet that shares every
+        #: other weight, its projection and tower moved to ``device``
+        self.ip = ip_adapter
+        if ip_adapter is not None:
+            self.ip = ip_adapter.to(self.device)
+            models = ip_adapter.splice(models)
+        self.models = models
+        #: ControlNet bundles (a list for multi-ControlNet), moved to
+        #: ``device`` and cast to the UNet's dtype in place: dispatches with
+        #: ``control=`` run each net's trunk a step and add the summed
+        #: residuals to the UNet's skips
+        if controlnet is not None and not isinstance(controlnet,
+                                                     (list, tuple)):
+            controlnet = [controlnet]
+        self.controlnet = list(controlnet) if controlnet else None
+        for cn in self.controlnet or ():
+            if cn.pixel_factor != models.vae_scale_factor:
+                raise ValueError(
+                    f"ControlNet conditioning embedding downsamples "
+                    f"{cn.pixel_factor}x but the VAE factor is "
+                    f"{models.vae_scale_factor}x")
+            if (cn.config.cross_attention_dim
+                    != models.unet_config.cross_attention_dim):
+                raise ValueError("ControlNet cross_attention_dim does not "
+                                 "match the bundle's UNet")
+            cn.module.to(device=self.device, dtype=models.dtype)
         self.scheduler_name = scheduler
         self.sched = get_scheduler(scheduler)
         #: dispatch batches are padded up to a multiple of this
@@ -196,26 +232,68 @@ class Engine:
                 self._embed_cache.move_to_end(key)
                 return self._embed_cache[key]
         m = self.models
+        ids2 = (None if m.text_encoder_2 is None else
+                (m.tokenizer_2 or m.tokenizer)(list(key))["input_ids"])
+        out = self._encode_ids(m.tokenizer(list(key))["input_ids"], ids2)
+        self._cache_embedding(key, out)
+        return out
 
-        def ids(tok):
-            return torch.as_tensor(tok(list(key))["input_ids"],
-                                   dtype=torch.long, device=self.device)
+    def _encode_ids(self, ids, ids2=None) -> tuple:
+        """Token ids of the tower(s) -> (hidden states, pooled output or
+        None): tower 1 alone, both concatenated (SDXL-base), or tower 2
+        alone (the refiner), as ``_embed`` describes."""
+        m = self.models
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.long,
+                                   device=self.device)
 
         if m.text_encoder_2 is None:
-            out = (m.text_encoder(ids(m.tokenizer))[0], None)
-        else:
-            h2, pooled = m.text_encoder_2(ids(m.tokenizer_2 or m.tokenizer))
-            dual = (m.unet_config.cross_attention_dim
-                    == m.text_config.hidden_size + m.text_config_2.hidden_size)
-            if dual:
-                h1 = m.text_encoder(ids(m.tokenizer))[0]
-                out = (torch.cat([h1.float(), h2.float()], dim=-1), pooled)
-            else:
-                out = (h2.float(), pooled)
+            return m.text_encoder(dev(ids))[0], None
+        h2, pooled = m.text_encoder_2(dev(ids2))
+        dual = (m.unet_config.cross_attention_dim
+                == m.text_config.hidden_size + m.text_config_2.hidden_size)
+        if not dual:
+            return h2.float(), pooled
+        h1 = m.text_encoder(dev(ids))[0]
+        return torch.cat([h1.float(), h2.float()], dim=-1), pooled
+
+    def _cache_embedding(self, key, out) -> None:
         with self._lock:
             self._embed_cache[key] = out
             self._embed_cache.move_to_end(key)
             self._evict_embed_cache()
+
+    @torch.no_grad()
+    def embed_text_weighted(self, text, num_chunks: Optional[int] = None
+                            ) -> torch.Tensor:
+        """Prompt(s) with A1111/compel emphasis syntax -> (B, 77·n, D)
+        float32 on the device (``core/prompt_weighting.py``): n 77-token
+        windows, each window's hidden states weighted (mean-preserving) and
+        the windows concatenated along the sequence.  ``num_chunks`` forces
+        n, so that the cond and uncond contexts of one CFG dispatch agree;
+        an SDXL bundle encodes its second tower at the same n.  A short
+        prompt without weights gives ``embed_text``'s values."""
+        texts = [text] if isinstance(text, str) else list(text)
+        key = ("__weighted__", num_chunks, *texts)
+        with self._lock:
+            if key in self._embed_cache:
+                self._embed_cache.move_to_end(key)
+                return self._embed_cache[key]
+        m = self.models
+        tok, tok2 = m.tokenizer, m.tokenizer_2 or m.tokenizer
+        enc = [encode_weighted(tok, t, num_chunks=num_chunks) for t in texts]
+        n = max(ids.shape[0] for ids, _ in enc)
+        enc = [(ids, w) if ids.shape[0] == n
+               else encode_weighted(tok, t, num_chunks=n)
+               for (ids, w), t in zip(enc, texts)]
+        ids2 = (np.concatenate([encode_weighted(tok2, t, num_chunks=n)[0]
+                                for t in texts])
+                if m.text_encoder_2 is not None else None)
+        h, _ = self._encode_ids(np.concatenate([i for i, _ in enc]), ids2)
+        h = apply_token_weights(h, np.concatenate([w for _, w in enc]))
+        out = h.reshape(len(texts), n * h.shape[1], h.shape[2])
+        self._cache_embedding(key, out)
         return out
 
     def _evict_embed_cache(self):
@@ -454,19 +532,111 @@ class Engine:
                                device=self.device).expand(2 * Bp, 6)
         return torch.cat([pad(uncond_pooled), pad(pooled)]), ids
 
+    def _ctrl_args(self, pad, control, control_scale, B: int, h: int,
+                   w: int) -> list:
+        """ControlNet conditioning of one dispatch: [(NCHW float32 maps of
+        Bp rows on the device, scale)], one pair a net.  ``control``: one
+        map, (H, W, 3) or (B, H, W, 3) in [0, 1] at the output size, or a
+        list of them matching the engine's nets; ``control_scale``: a float
+        or one a net."""
+        if control is None:
+            return []
+        if self.controlnet is None:
+            raise ValueError("control= passed but this Engine has no "
+                             "ControlNet (Engine(controlnet=...))")
+        if self.step_cache:
+            raise ValueError("control= cannot combine with step_cache (no "
+                             "deep skips on the cached pass)")
+        n = len(self.controlnet)
+        maps = control if isinstance(control, (list, tuple)) else [control]
+        if len(maps) != n:
+            raise ValueError(f"this engine has {n} ControlNet(s) but got "
+                             f"{len(maps)} control map(s)")
+        scales = (list(control_scale)
+                  if isinstance(control_scale, (list, tuple))
+                  else [control_scale] * n)
+        if len(scales) != n:
+            raise ValueError(f"{len(scales)} control_scale values for "
+                             f"{n} ControlNet(s)")
+        f = self.models.vae_scale_factor
+        out = []
+        for cmap, scale in zip(maps, scales):
+            c = self._to_device(cmap).float()
+            if c.ndim == 3:
+                c = c[None]
+            if tuple(c.shape[1:]) != (h * f, w * f, 3):
+                raise ValueError(
+                    f"control map must be (B, {h * f}, {w * f}, 3) at this "
+                    f"dispatch's resolution, got {tuple(c.shape)}")
+            if c.shape[0] == 1 and B > 1:
+                c = c.expand((B,) + tuple(c.shape[1:]))
+            out.append((pad(c).permute(0, 3, 1, 2), float(scale)))
+        return out
+
+    def _ip_args(self, pad, ip_tokens, ip_scale, B: int):
+        """IP-Adapter operands of one dispatch: (the CFG-stacked (2Bp, T,
+        D) image tokens, the uncond half the projection of a zero
+        embedding, scale), or None without an adapter.  With an adapter
+        but no image the scale is 0, and the UNet's output is the
+        adapter-free one."""
+        if self.ip is None:
+            if ip_tokens is not None:
+                raise ValueError("ip_tokens= passed but this Engine has no "
+                                 "IP-Adapter (Engine(ip_adapter=...))")
+            return None
+        un = self.ip.uncond_tokens()
+        if ip_tokens is None:
+            cond, ip_scale = un, 0.0
+        else:
+            cond = self._to_device(ip_tokens).float()
+            if cond.ndim == 2:
+                cond = cond[None]
+        if cond.shape[0] == 1 and B > 1:
+            cond = cond.expand((B,) + tuple(cond.shape[1:]))
+        return (torch.cat([pad(un.expand(cond.shape)), pad(cond)]),
+                float(ip_scale))
+
+    def _residuals(self, ctrl: list, x, tb, ctx, xl: dict, cfg_on: bool,
+                   guess_mode: bool) -> dict:
+        """Each ControlNet's trunk on this step's inputs, the residuals
+        summed over the nets; ``guess_mode`` zeroes the uncond half's in a
+        CFG step.  -> the UNet's ``ctrl_down``/``ctrl_mid``."""
+        down = mid = None
+        for cn, (cmap, scale) in zip(self.controlnet, ctrl):
+            d, m = cn.module(x, tb, ctx, cmap, conditioning_scale=scale,
+                             **(xl if cn.config.addition_embed_dim
+                                is not None else {}))
+            if down is None:
+                down, mid = list(d), m
+            else:
+                down = [a + b for a, b in zip(down, d)]
+                mid = mid + m
+        if guess_mode and cfg_on:
+            half = x.shape[0] // 2
+            keep = torch.cat([torch.zeros(half), torch.ones(
+                x.shape[0] - half)]).to(device=mid.device, dtype=mid.dtype)[
+                    :, None, None, None]
+            down = [d * keep for d in down]
+            mid = mid * keep
+        return dict(ctrl_down=tuple(down), ctrl_mid=mid)
+
     @torch.no_grad()
     def _program(self, context, added, latents, guidance: float, sched,
                  tables, out_u8: bool, generator: NoiseSource,
-                 after_step=None) -> torch.Tensor:
+                 after_step=None, ctrl=(), guess_mode: bool = False,
+                 ip=None) -> torch.Tensor:
         """The denoise loop and the decode.  Each ``guidance_interval``
-        segment runs with CFG (2B UNet rows, ``context`` and the SDXL
-        ``added`` conditions whole) or cond-only (B rows, their cond
-        halves).  With ``step_cache`` the full-trunk
+        segment runs with CFG (2B UNet rows, ``context``, the SDXL
+        ``added`` conditions, the control maps doubled and the IP tokens
+        whole) or cond-only (B rows, their cond halves).  With
+        ``step_cache`` the full-trunk
         decision is a host boolean, and the deep feature a Python variable
         that each segment's first step (always full) sets.  A stochastic
         sampler's step gets a noise field drawn on the device.
         ``after_step(i, latents) -> latents`` runs after each step
-        (inpaint's projection)."""
+        (inpaint's projection).  ``ctrl``: [(maps of B rows, scale)] a
+        ControlNet (``_ctrl_args``); ``ip``: (tokens of 2B rows, scale)
+        (``_ip_args``)."""
         unet, k = self.models.unet, self.step_cache
         split = self.step_cache_split if k else None
         lat = latents * sched.init_noise_sigma(tables)
@@ -489,6 +659,11 @@ class Engine:
             ctx = context if cfg_on else cond_half(context)
             add = added if cfg_on else tuple(map(cond_half, added))
             xl = dict(text_embeds=add[0], time_ids=add[1]) if add else {}
+            maps = [(torch.cat([c, c]) if cfg_on else c, scale)
+                    for c, scale in ctrl]
+            ip_kw = ({} if ip is None else dict(
+                ip_context=ip[0] if cfg_on else cond_half(ip[0]),
+                ip_scale=ip[1]))
             deep = None
             for i in range(a, b):
                 inp = sched.scale_model_input(tables, state, i, lat)
@@ -500,9 +675,11 @@ class Engine:
                             else (i - a) % k == 0)
                     eps, deep = unet(x, tb, ctx, cache_split=split,
                                      deep_feature=None if full else deep,
-                                     **xl)
+                                     **xl, **ip_kw)
                 else:
-                    eps = unet(x, tb, ctx, **xl)
+                    res = (self._residuals(maps, x, tb, ctx, xl, cfg_on,
+                                           guess_mode) if maps else {})
+                    eps = unet(x, tb, ctx, **xl, **res, **ip_kw)
                 if cfg_on:
                     eps_u, eps_c = eps.chunk(2)
                     eps = apply_guidance(eps_u, eps_c, guidance,
@@ -514,6 +691,8 @@ class Engine:
         return self._decode_frames(lat, out_u8)
 
     def _to_device(self, x) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = np.ascontiguousarray(x)  # a flipped view has negative strides
         return torch.as_tensor(x).to(self.device)
 
     def _conditioning(self, cond, uncond, B: int, h: int, w: int, pooled,
@@ -570,7 +749,9 @@ class Engine:
                              guidance_scale: float = 7.5, eta: float = 0.0,
                              generator: Optional[NoiseSource] = None,
                              output_dtype: str = "float32", pooled=None,
-                             uncond_pooled=None):
+                             uncond_pooled=None, control=None,
+                             control_scale=1.0, guess_mode: bool = False,
+                             ip_tokens=None, ip_scale: float = 1.0):
         """Enqueue one dispatch; returns (frames on the device, valid).
 
         cond/uncond: (B, S, D) text embeddings (uncond may be (1, S, D));
@@ -583,27 +764,38 @@ class Engine:
         (the JAX engine's ``key``): a ``torch.Generator`` on the engine's
         device, by default one seeded 0, or a callable ``(i, latents) ->
         field`` (fields of the latents' shape, or ``(1, C, h, w)`` to
-        broadcast over the batch) that replaces the draws."""
+        broadcast over the batch) that replaces the draws.
+
+        ``control``: the ControlNet map(s), (H, W, 3) or (B, H, W, 3) in [0,
+        1] at the output size (a list for several nets; both CFG halves are
+        conditioned), weighted by ``control_scale`` (a float or one a net);
+        ``guess_mode`` steers the cond half only.  ``ip_tokens``: (1 or B,
+        T, D) image tokens of the engine's IP-Adapter
+        (``IPAdapter.image_tokens``), at ``ip_scale``."""
         self._check_output_dtype(output_dtype)
         noise = self._to_device(noise).float()
-        B = noise.shape[0]
+        B, h, w = noise.shape[:3]
         pad, context, added = self._conditioning(
-            cond, uncond, B, noise.shape[1], noise.shape[2], pooled,
-            uncond_pooled)
+            cond, uncond, B, h, w, pooled, uncond_pooled)
+        ctrl = self._ctrl_args(pad, control, control_scale, B, h, w)
+        ip = self._ip_args(pad, ip_tokens, ip_scale, B)
         latents = pad(noise).permute(0, 3, 1, 2)
         sched_name, sched = self._sampler()
         imgs = self._program(context, added, latents, float(guidance_scale),
                              sched, self._tables(sched_name, sched,
                                                  num_inference_steps, eta),
                              output_dtype == "uint8",
-                             self._noise_source(generator))
+                             self._noise_source(generator), ctrl=ctrl,
+                             guess_mode=guess_mode, ip=ip)
         return imgs, B
 
     def img2img(self, cond, uncond, init_latents, *, strength: float = 0.75,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 eta: float = 0.0, generator: Optional[NoiseSource] = None,
                 noise=None, output_dtype: str = "float32", pooled=None,
-                uncond_pooled=None, **unported) -> np.ndarray:
+                uncond_pooled=None, control=None, control_scale=1.0,
+                guess_mode: bool = False, ip_tokens=None,
+                ip_scale: float = 1.0) -> np.ndarray:
         """Denoise from ``init_latents`` ((B, h, w, 4) scaled latents, as
         ``encode_image`` gives) noised to the schedule's entry point:
         ``strength`` in (0, 1] is the share of the schedule that runs (1:
@@ -611,11 +803,9 @@ class Engine:
         others by ``add_noise`` at the first timestep that runs.  ``noise``:
         one (1 or B, h, w, 4) field, broadcast over the batch (vid2vid's
         shared field); otherwise it is drawn from ``generator``, which then
-        also gives the stochastic samplers' step fields.  -> numpy (B, H,
-        W, 3) frames, float32 in [0, 1] or uint8."""
-        refuse_unported("img2img", ("control", "control_scale",
-                                    "guess_mode", "ip_tokens", "ip_scale"),
-                        unported)
+        also gives the stochastic samplers' step fields.  The ControlNet
+        and IP-Adapter arguments are ``denoise_frames_async``'s.  -> numpy
+        (B, H, W, 3) frames, float32 in [0, 1] or uint8."""
         if not 0.0 < strength <= 1.0:
             raise ValueError("strength must be in (0, 1]")
         self._check_output_dtype(output_dtype)
@@ -633,16 +823,20 @@ class Engine:
                                     int(run["timesteps"][0]))
         pad, context, added = self._conditioning(
             cond, uncond, B, h, w, pooled, uncond_pooled)
-        imgs = self._program(context, added, pad(noisy),
-                             float(guidance_scale), sched, run,
-                             output_dtype == "uint8", generator)
+        imgs = self._program(
+            context, added, pad(noisy), float(guidance_scale), sched, run,
+            output_dtype == "uint8", generator,
+            ctrl=self._ctrl_args(pad, control, control_scale, B, h, w),
+            guess_mode=guess_mode,
+            ip=self._ip_args(pad, ip_tokens, ip_scale, B))
         return imgs[:B].cpu().numpy()
 
     def inpaint(self, cond, uncond, init_latents, mask, *,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
                 eta: float = 0.0, generator: Optional[NoiseSource] = None,
                 noise=None, output_dtype: str = "float32", pooled=None,
-                uncond_pooled=None, **unported) -> np.ndarray:
+                uncond_pooled=None, ip_tokens=None,
+                ip_scale: float = 1.0) -> np.ndarray:
         """Regenerate where ``mask`` is 1 and keep ``init_latents`` where it
         is 0: the whole schedule runs from noise, and after every step the
         known region is put back at that step's post-step noise level
@@ -654,8 +848,8 @@ class Engine:
         every injection's noise.  The KL decode is tiled under
         ``vae_tile``; the engine's step caching and guidance interval apply
         as in a txt2img dispatch (the JAX engine's inpaint program runs
-        neither).  -> numpy (B, H, W, 3) frames."""
-        refuse_unported("inpaint", ("ip_tokens", "ip_scale"), unported)
+        neither).  ``ip_tokens``/``ip_scale`` as ``denoise_frames_async``.
+        -> numpy (B, H, W, 3) frames."""
         self._check_output_dtype(output_dtype)
         init = self._to_device(init_latents).float().permute(0, 3, 1, 2)
         B, _, h, w = init.shape
@@ -685,7 +879,8 @@ class Engine:
         imgs = self._program(context, added, noise0, float(guidance_scale),
                              sched, tables, output_dtype == "uint8",
                              generator, after_step=lambda i, lat: (
-                                 m * lat + (1.0 - m) * known(i)))
+                                 m * lat + (1.0 - m) * known(i)),
+                             ip=self._ip_args(pad, ip_tokens, ip_scale, B))
         return imgs[:B].cpu().numpy()
 
     def denoise_frames(self, cond, uncond, noise, **kw) -> np.ndarray:

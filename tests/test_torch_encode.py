@@ -10,8 +10,9 @@ prefix) and to the port under diffusers ``AutoencoderTiny`` names, at the
 published stage structure (narrow) and the tiny geometry, 1e-4;
 ``from_jax_params`` gives the same diffusers dict, and ``with_taesd``
 carries the encoder.  Last, the full-width encoders' GroupNorm and
-attention calls, recorded on the meta device, are all keys that
-``chip_smoke.py`` phase 3 checks.
+attention calls, and those of the full-width SD 1.x UNet with a ControlNet,
+an IP-Adapter and a weighted context of two windows, recorded on the meta
+device, are all keys that ``chip_smoke.py`` phase 3 checks.
 """
 
 import importlib.util
@@ -192,7 +193,8 @@ def recorded_kernel_keys(monkeypatch, run) -> tuple:
 def assert_checked(smoke, attn, gn):
     bf16 = torch.bfloat16
     checked_attn = {(*s, bf16) for s in smoke.ATTN_SHAPES
-                    + smoke.FAMILY_ATTN_SHAPES + smoke.EDIT_ATTN_SHAPES}
+                    + smoke.FAMILY_ATTN_SHAPES + smoke.EDIT_ATTN_SHAPES
+                    + smoke.ADDON_ATTN_SHAPES}
     checked_gn = {(*c, bf16, bf16) for c in smoke.GN_SHAPES
                   + smoke.FAMILY_GN_SHAPES + smoke.EDIT_GN_SHAPES}
     assert attn and gn
@@ -217,6 +219,40 @@ def test_full_width_encoders_run_at_checked_keys(monkeypatch):
     # every new key is one the encoders run
     assert {(*c, torch.bfloat16, torch.bfloat16)
             for c in smoke.EDIT_GN_SHAPES if c[0][0] in (1, 8)} <= gn
+
+
+def test_full_width_addons_run_at_checked_keys(monkeypatch):
+    """The SD 1.x UNet at 512², CFG batch 16, in bf16: with an SD 1.x
+    ControlNet's residuals, with an IP-Adapter's image tokens (4) at every
+    cross-attention, and over a weighted context of two windows (154
+    keys)."""
+    from stable_diffusion_videos_tpu_torch.models.controlnet import \
+        ControlNet
+    from stable_diffusion_videos_tpu_torch.models.ip_adapter import \
+        IPAdapter
+    from stable_diffusion_videos_tpu_torch.models.unet import (
+        UNet2DCondition, UNetConfig)
+    smoke = chip_smoke()
+    cfg = UNetConfig.sd_v1()
+    with torch.device("meta"):
+        unet = UNet2DCondition(cfg).to(torch.bfloat16)
+        net = ControlNet(cfg).to(torch.bfloat16)
+    bundle = SDModels(cfg, VAEConfig.sd_v1(), None, unet, None, None, None)
+    ip_unet = IPAdapter.random(cfg).splice(bundle).unet
+    meta = dict(device="meta")
+    x, t = torch.empty(16, 4, 64, 64, **meta), torch.empty(16, **meta)
+    ctx = torch.empty(16, 77, 768, **meta)
+
+    def run():
+        down, mid = net(x, t, ctx, torch.empty(16, 3, 512, 512, **meta))
+        unet(x, t, ctx, ctrl_down=down, ctrl_mid=mid)
+        ip_unet(x, t, ctx, ip_context=torch.empty(16, 4, 768, **meta))
+        unet(x, t, torch.empty(16, 154, 768, **meta))
+    attn, gn = recorded_kernel_keys(monkeypatch, run)
+    assert_checked(smoke, attn, gn)
+    # every add-on row is one these runs reach
+    assert {(*s, torch.bfloat16) for s in smoke.ADDON_ATTN_SHAPES} <= attn
+    assert len(smoke.ADDON_ATTN_SHAPES) == 8
 
 
 @pytest.fixture

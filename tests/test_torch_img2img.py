@@ -113,7 +113,7 @@ def test_strength_is_validated(bundles):
     lat, field = image_inputs()
     with pytest.raises(ValueError, match="strength"):
         Engine(bundles[1], CPU).img2img(cond, uncond, lat, strength=0.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no ControlNet"):
         Engine(bundles[1], CPU).img2img(cond, uncond, lat, control="x")
 
 

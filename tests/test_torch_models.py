@@ -151,14 +151,20 @@ def test_load_state_dict_is_strict(jax_tiny):
 @pytest.mark.parametrize("kw", ["ctrl_down", "ctrl_mid", "ip_context",
                                 "text_embeds", "time_ids"])
 def test_unet_refuses_unported_inputs(kw):
-    """ControlNet and IP-Adapter inputs are not ported; SDXL's text_time
-    inputs are, and a UNet without text_time conditioning refuses them."""
+    """Inputs the UNet cannot take raise ValueError naming them: ControlNet
+    residuals of the wrong count or beside DeepCache's ``cache_split``,
+    image tokens without spliced IP-Adapter projections, and SDXL's
+    text_time inputs on a UNet without text_time conditioning."""
     m = SDModels.tiny()
-    error = (ValueError if kw in ("text_embeds", "time_ids")
-             else NotImplementedError)
-    with pytest.raises(error, match=kw):
+    bad = {"ctrl_down": dict(ctrl_down=(torch.zeros(1, 32, 8, 8),)),
+           "ctrl_mid": dict(ctrl_mid=torch.zeros(1, 64, 4, 4),
+                            cache_split=1),
+           "ip_context": dict(ip_context=torch.zeros(1, 4, 32)),
+           "text_embeds": dict(text_embeds=1),
+           "time_ids": dict(time_ids=1)}[kw]
+    with pytest.raises(ValueError, match=kw):
         m.unet(torch.zeros(1, 4, 8, 8), torch.zeros(1), torch.zeros(1, 7, 32),
-               **{kw: 1})
+               **bad)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -140,6 +140,8 @@ def test_vid2vid_abort_deletes_the_video(tmp_path):
                                 dict(control_from_source="canny"),
                                 dict(ip_image="x.png")])
 def test_vid2vid_refuses_unported_conditioning(kw):
-    with pytest.raises(NotImplementedError):
+    """ControlNet and IP-Adapter conditioning on a pipeline built without
+    the model it needs raises ValueError naming that model."""
+    with pytest.raises(ValueError, match="ControlNet|controlnet|ip_adapter"):
         StableDiffusionWalkPipeline.tiny(CPU).vid2vid(
             source_frames(), "a red fox", **kw)

@@ -113,9 +113,9 @@ def test_walk_with_video_and_audio(tmp_path):
 
 
 @pytest.mark.parametrize("where,kw", [
-    ("walk", dict(upsample=True)), ("walk", dict(control_image="x.png")),
-    ("pipeline", dict(controlnet="x")), ("pipeline", dict(tome=0.5)),
-    ("engine", dict(ip_adapter="x")), ("engine", dict(debug=True))])
+    ("walk", dict(upsample=True)), ("walk", dict(upsample_weights="x.pth")),
+    ("pipeline", dict(safety=True)), ("pipeline", dict(tome=0.5)),
+    ("engine", dict(spatial_shard=True)), ("engine", dict(debug=True))])
 def test_unported_options_raise(where, kw, tmp_path):
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
     with pytest.raises(NotImplementedError):
@@ -132,10 +132,22 @@ def test_port_never_imports_jax(tmp_path):
     """A walk with video and audio, one with dpm x ``step_cache=2``, one
     with lcm under ``frozen_noise``, a tiny SDXL-shaped walk under ``fast``,
     decodes through the tiny decoder and in tiles, an img2img, an inpaint,
-    a vid2vid of the first walk's video, a tiny refiner's img2img and a
-    TAESD encode import neither jax nor the JAX package, not even its
-    host-only modules."""
+    a vid2vid of the first walk's video, a tiny refiner's img2img, a TAESD
+    encode, and a walk with a ControlNet, an IP-Adapter and prompt
+    weighting on a bundle with a LoRA and a textual-inversion file merged
+    import neither jax nor the JAX package, not even its host-only
+    modules."""
+    from safetensors.numpy import save_file
     wav = click_track(tmp_path / "beat.wav")
+    rng = np.random.default_rng(0)
+    attn = "lora_unet_down_blocks_0_attentions_0_transformer_blocks_0_attn1"
+    save_file({f"{attn}_to_q.lora_down.weight":
+               rng.standard_normal((4, 32), dtype=np.float32),
+               f"{attn}_to_q.lora_up.weight":
+               rng.standard_normal((32, 4), dtype=np.float32)},
+              str(tmp_path / "lora.safetensors"))
+    save_file({"emb_params": rng.standard_normal((2, 32), dtype=np.float32)},
+              str(tmp_path / "mytrigger.safetensors"))
     code = (
         "import sys, torch\n"
         "from stable_diffusion_videos_tpu_torch.pipeline import "
@@ -183,6 +195,19 @@ def test_port_never_imports_jax(tmp_path):
         "r.encode_image(torch.rand(1, 16, 16, 3) * 2 - 1), "
         "pooled=r.embed_text_pooled('a'), num_inference_steps=3)"
         ".shape == (1, 16, 16, 3)\n"
+        "from stable_diffusion_videos_tpu_torch.models import (controlnet, "
+        "ip_adapter, lora_file, safety, textual_inversion)\n"
+        "m = textual_inversion.apply_textual_inversion(lora_file.apply_lora("
+        f"SDModels.tiny(), {str(tmp_path / 'lora.safetensors')!r}), "
+        f"{str(tmp_path / 'mytrigger.safetensors')!r})\n"
+        "ip = ip_adapter.IPAdapter.random(m.unet_config, embed_dim=16, "
+        "vision=safety.CLIPVisionConfig.tiny())\n"
+        "P(m, torch.device('cpu'), controlnet=controlnet.ControlNetBundle"
+        ".tiny(), ip_adapter=ip, prompt_weighting=True).walk(prompts=["
+        "'a (b:1.2) mytrigger', 'c'], seeds=[1, 2], num_interpolation_steps"
+        "=2, height=32, width=32, num_inference_steps=2, batch_size=2, "
+        f"make_video=False, output_dir={str(tmp_path)!r}, name='c', "
+        "control_image=img[0], ip_image=img[1])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
@@ -193,6 +218,7 @@ def test_port_never_imports_jax(tmp_path):
     assert len(list(tmp_path.glob("d/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("l/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("x/**/frame*.png"))) == 2
+    assert len(list(tmp_path.glob("c/**/frame*.png"))) == 2
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
