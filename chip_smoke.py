@@ -87,7 +87,27 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    file written here and merged, each merged weight held to its delta,
    then one dispatch.  Each run's launches by shape, every one of which
    phase 3 checks (the IP rows at Sk=4 and the weighted rows at Sk=154,
-   bf16).
+   bf16);
+11. post: post-processing and the opt-in levers on phase 5's bundle at
+   512², pndm-50, CFG 7.5, batch 8, with a safety checker at the geometry
+   of CompVis/stable-diffusion-safety-checker (OpenAI ViT-L/14, bf16 tower,
+   fp32 head) and a Real-ESRGAN x4plus RRDBNet (16.7M parameters), both
+   drawn from numpy seeds, the net written as a ``.pth`` under
+   ``params_ema`` and loaded back through ``upsample_weights=``: the
+   upsampler in fp32 on the card against the CPU on a 32² crop (and two
+   x2plus-shaped nets, 12 input channels, under ``params_ema`` and
+   ``params``), 8 frames 512² -> 2048² timed in fp32 and bf16 with the
+   peak memory; the checker's tower and head in fp32 against the CPU, a
+   concept planted on one of 8 synthetic frames flagged on the card alone
+   and blacked out by ``_postprocess``, ``check_safety`` timed; ToMe's
+   plan, merge and unmerge at (16, 4096, 320) fp32 against the CPU,
+   ``tome=0`` bit-equal to plain; FreeU's filter at the skips' shapes
+   against the CPU, neutral factors within 2/255 of plain; ToMe 0.5 and
+   FreeU dispatches timed in turns with plain ones; then the composite
+   walk (safety, upsample, ToMe 0.5, FreeU, 2 prompts x 16 frames, the mp4
+   at 2048²) and its resume after the last 8 PNGs go.  Each run's launches
+   by shape, every one of which phase 3 checks (ToMe's level 0 at Sq = Sk
+   = 2048, bf16).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -112,7 +132,7 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled", "families", "edit", "addons")
+          "distilled", "families", "edit", "addons", "post")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -291,6 +311,32 @@ LORA_MERGE_RTOL = 2.0 ** -8
 LORA_MERGE_FP32 = 1e-6
 # the IP-Adapter's image tower (fp32, TF32 off) on the card against the CPU
 TOWER_TOL = dict(atol=1e-4, rtol=1e-4)
+# Phase 11: ToMe at ratio 0.5 merges floor(0.5 S) of the level-0 tokens,
+# so the UNet's level-0 self-attention runs at Sq = Sk = 2048 (CFG batch 16)
+TOME_RATIO = 0.5
+TOME_S = 4096 - int(TOME_RATIO * 4096)
+POST_ATTN_SHAPES = new_rows([(16, TOME_S, TOME_S, 8, 40)], ATTN_SHAPES,
+                            FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES,
+                            ADDON_ATTN_SHAPES)
+# the upsampler, the safety checker's tower and head, and the FreeU filter
+# in fp32 (TF32 off) on the card against the CPU; ToMe's merge and unmerge
+POST_TOL = dict(atol=1e-4, rtol=1e-4)
+OPS_TOL = dict(atol=1e-5, rtol=1e-5)
+# multiply-adds of RealESRGAN_x4plus on one 512² frame: 23 RRDBs of 3 dense
+# blocks (3·9·(64·32 + 96·32 + 128·32 + 160·32 + 192·64) a pixel each) at
+# 512², conv_body and conv_first there, conv_up1 at 1024², conv_up2,
+# conv_hr and conv_last at 2048²
+ESRGAN_MACS = (512 * 512 * (23 * 3 * 9 * (64 * 32 + 96 * 32 + 128 * 32
+                                          + 160 * 32 + 192 * 64)
+                            + 9 * 64 * 64 + 9 * 3 * 64)
+               + 1024 ** 2 * 9 * 64 * 64 + 2048 ** 2 * 9 * (2 * 64 * 64
+                                                             + 64 * 3))
+# multiply-adds of the safety checker's ViT-L/14 on one frame: 257 tokens x
+# 24 layers of q, k, v, out (4·1024²) and the MLP (2·1024·4096), the
+# scores and their product with v (2·257·1024), the patch embedding and the
+# projection
+SAFETY_MACS = (24 * 257 * (4 * 1024 ** 2 + 2 * 1024 * 4096 + 2 * 257 * 1024)
+               + 256 * 14 * 14 * 3 * 1024 + 1024 * 768)
 
 
 def gpu_line() -> str:
@@ -492,7 +538,8 @@ def phase_kernels(torch):
         for group, attn, gn in (
             ("families", FAMILY_ATTN_SHAPES, FAMILY_GN_SHAPES),
             ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES),
-            ("addons", ADDON_ATTN_SHAPES, []))}
+            ("addons", ADDON_ATTN_SHAPES, []),
+            ("post", POST_ATTN_SHAPES, []))}
 
     def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
@@ -520,7 +567,7 @@ def phase_kernels(torch):
         # the families', the edit paths' and the add-ons' rows in the walks'
         # dtype only
         shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
-                                + ADDON_ATTN_SHAPES
+                                + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
                                 if dt == torch.bfloat16 else [])
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -732,7 +779,7 @@ def counted_run(torch, label: str, run):
         raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
     checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES
-                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES}
+                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES}
                | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES
                   + EDIT_GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
@@ -1605,6 +1652,380 @@ def phase_addons(torch, models, frames):
     return out
 
 
+def synthetic_frames(n: int = 8, side: int = 512) -> np.ndarray:
+    """``n`` distinct uint8 frames (gradients, checkerboards, noise,
+    stripes, rings, colour blocks): decoded random-weight frames are nearly
+    flat and embed alike, these do not."""
+    y, x = np.mgrid[0:side, 0:side] / (side - 1)
+    rng = np.random.default_rng(21)
+
+    def board(k):
+        return (np.indices((side, side)) // k).sum(0) % 2
+
+    r = np.hypot(x - 0.5, y - 0.5)
+    blocks = np.kron(rng.random((4, 4, 3)), np.ones((side // 4, side // 4, 1)))
+    out = [np.stack([x, y, 1 - x], -1), np.repeat(board(32)[..., None], 3, -1),
+           rng.random((side, side, 3)),
+           np.stack([np.sin(20 * x) ** 2, np.cos(13 * y) ** 2, x * y], -1),
+           np.stack([r, 1 - r, (10 * r) % 1], -1), blocks,
+           np.stack([board(8), 1 - board(64), 0.5 + 0 * x], -1),
+           np.stack([y, 0.2 + 0 * x, x * (1 - y)], -1)]
+    return (np.clip(np.stack(out[:n]), 0, 1) * 255).round().astype(np.uint8)
+
+
+def random_rrdbnet(torch, config, seed: int) -> dict:
+    """An RRDBNet's basicsr-named weights drawn N(0, 0.02) from a numpy
+    seed, conv_last's bias moved up 0.5 so the output sits inside [0, 1]
+    (0.5 ± 0.03 at x4plus's geometry) instead of at the clip."""
+    from stable_diffusion_videos_tpu_torch.models.rrdbnet import RRDBNet
+    from stable_diffusion_videos_tpu_torch.models.weights import \
+        random_state_dict
+    with torch.device("meta"):
+        shapes = RRDBNet(config)
+    sd = {k: torch.from_numpy(v) for k, v in
+          random_state_dict(shapes, seed, 0.02).items()}
+    sd["conv_last.bias"] += 0.5
+    return sd
+
+
+class DeviceSpans:
+    """Wraps a method of one object so that each call is bracketed by CUDA
+    events: the device time of the work it enqueues, read after a
+    synchronize, with no wait in the call."""
+
+    def __init__(self, torch, obj, name: str):
+        self.torch, self.pairs = torch, []
+        inner = getattr(obj, name)
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        setattr(obj, name, timed)
+
+    def seconds(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.pairs) / 1e3
+
+
+def phase_post(torch, models, frames):
+    """The upsampler, the safety checker, ToMe and FreeU checked against
+    the CPU and timed, then the composite walk and its resume; -> {run:
+    {kernel: launches}}."""
+    import cv2
+
+    from stable_diffusion_videos_tpu_torch.models.rrdbnet import \
+        RRDBNetConfig
+    from stable_diffusion_videos_tpu_torch.models.safety import (
+        SAFETY_HEAD, SafetyChecker, SafetyConfig, preprocess_for_safety)
+    from stable_diffusion_videos_tpu_torch.models.unet import \
+        fourier_lowpass_scale
+    from stable_diffusion_videos_tpu_torch.ops.tome import (build_plan, merge,
+                                                            unmerge)
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.pipeline.upsampling import \
+        RealESRGANModel
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    dev, f32, bf16 = torch.device("cuda"), torch.float32, torch.bfloat16
+    line = gpu_line()
+    out = {}
+    WORK.mkdir(parents=True, exist_ok=True)
+    synth = synthetic_frames()
+    if frames is None:
+        frames = synth
+
+    # the upsampler: RealESRGAN_x4plus's geometry, written and read back
+    t0 = time.perf_counter()
+    x4 = RRDBNetConfig.x4plus()
+    sd = random_rrdbnet(torch, x4, seed=11)
+    pth = WORK / "post_realesrgan_x4plus.pth"
+    torch.save({"params_ema": sd}, pth)
+    up_cpu = RealESRGANModel.from_pretrained(str(pth), torch.device("cpu"))
+    up_dev = RealESRGANModel.from_pretrained(str(pth), dev)
+    n = sum(p.numel() for p in up_dev.net.parameters())
+    print(f"post: random RealESRGAN x4plus ({n / 1e6:.3f}M parameters) "
+          f"written and loaded in {time.perf_counter() - t0:.1f} s")
+    nets = [("x4plus params_ema", up_cpu, up_dev)]
+    for wrapper, seed in (("params_ema", 12), ("params", 13)):
+        path = WORK / f"post_realesrgan_x2plus_{wrapper}.pth"
+        torch.save({wrapper: random_rrdbnet(torch, RRDBNetConfig(scale=2),
+                                            seed)}, path)
+        a, b = (RealESRGANModel.from_pretrained(str(path), d)
+                for d in (torch.device("cpu"), dev))
+        if (a.config.scale, a.net.conv_first.in_channels) != (2, 12):
+            raise AssertionError(f"x2plus loaded as {a.config}")
+        nets.append((f"x2plus {wrapper}", a, b))
+        path.unlink()
+    crop = torch.from_numpy(frames[:1, :32, :32].astype(np.float32) / 255.0)
+    for label, a, b in nets:
+        want, got = a(crop), b(crop.to(dev)).cpu()
+        torch.testing.assert_close(got, want, **POST_TOL,
+                                   msg=lambda m: f"upsampler {label}: {m}")
+        print(f"post: upsampler {label} fp32 on a 32² crop -> "
+              f"{tuple(got.shape)}, card vs CPU max_abs_err "
+              f"{(got - want).abs().max().item():.3e} ({POST_TOL}); output "
+              f"{want.mean().item():.4f} ± {want.std().item():.4f}")
+    del nets, up_cpu, up_dev
+    x8 = torch.from_numpy(frames[:8]).to(dev).float() / 255.0
+    bound_s = 2 * ESRGAN_MACS / np.array([PEAK_OPS[4], PEAK_OPS[2]])
+    first = {}  # each dtype's first frame, on the host
+    for (dn, dtype), bound in zip((("fp32", f32), ("bf16", bf16)), bound_s):
+        up = RealESRGANModel(x4, sd, dev, dtype=dtype)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = up(x8)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            first[dn] = y[0].cpu()
+            del y
+        least = min(times[1:])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"post: upsampler {dn}, 8 frames 512² -> 2048²: first "
+              f"{times[0]:.4f} s, least of 2 warm {least:.4f} s, "
+              f"{least / 8:.4f} s a frame against a bound of "
+              f"{bound:.4f} s a frame ({2 * ESRGAN_MACS / 1e12:.2f} TFLOP at "
+              f"{'67' if dtype == f32 else '989'} TFLOP/s), share of bound "
+              f"{bound * 8 / least:.3f}; peak memory {peak:.2f} GB; on {line}")
+        del up
+    del x8
+    torch.cuda.empty_cache()
+    diff = (first["bf16"] - first["fp32"]).abs()
+    if not torch.isfinite(first["bf16"]).all():
+        raise AssertionError("bf16 upsampler output is not finite")
+    print(f"post: upsampler bf16 vs fp32 on frame 0 at 2048² (random "
+          f"weights): max_abs {diff.max().item():.4f}, mean_abs "
+          f"{diff.mean().item():.5f}, share of pixels off by more than 1/255 "
+          f"{(diff > 1 / 255).float().mean().item():.4f}")
+    del first, diff
+
+    # the safety checker at CompVis's geometry: tower and head in fp32
+    t0 = time.perf_counter()
+    scfg = SafetyConfig.sd_v1()
+    checker = SafetyChecker.random(scfg, seed=7, std=0.02)
+    ssd = {k: v.clone() for k, v in checker.state_dict().items()}
+    n = sum(p.numel() for p in checker.parameters())
+    print(f"post: random safety checker ({n / 1e9:.3f}B parameters) built "
+          f"in {time.perf_counter() - t0:.1f} s")
+    pix = preprocess_for_safety(torch.from_numpy(synth[:2] / 255.0).float(),
+                                224)
+    card = SafetyChecker.build(scfg, ssd, f32).to(dev)
+    with torch.no_grad():
+        want = (checker.embed(pix), checker(pix))
+        got = (card.embed(pix.to(dev)).cpu(), card(pix.to(dev)).cpu())
+    torch.testing.assert_close(got[0], want[0], **POST_TOL,
+                               msg=lambda m: f"safety embedding: {m}")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"safety flags {got[1]} vs CPU {want[1]}")
+    print(f"post: safety checker fp32, 2 frames: projected embedding card vs "
+          f"CPU max_abs_err {(got[0] - want[0]).abs().max().item():.3e} "
+          f"({POST_TOL}); flags equal {got[1].tolist()}")
+    del card, checker
+    # the bundle's checker (bf16 tower, fp32 head) with concept 0 planted on
+    # one synthetic frame, its threshold midway to the nearest other frame,
+    # the cosines from the same weights in fp32 on the CPU
+    k = 5
+    sd16 = {name: v if name in SAFETY_HEAD else v.to(bf16)
+            for name, v in ssd.items()}
+    ref = SafetyChecker.build(scfg, {n_: v.float() for n_, v in sd16.items()})
+    with torch.no_grad():
+        emb = ref.embed(preprocess_for_safety(
+            torch.from_numpy(synth / 255.0).float(), 224))
+    cos = emb @ emb[k]
+    near = torch.cat([cos[:k], cos[k + 1:]]).max().item()
+    sd16["concept_embeds"][0] = emb[k]
+    sd16["concept_embeds_weights"][:] = 2.0   # above any cosine
+    sd16["concept_embeds_weights"][0] = (cos[k].item() + near) / 2
+    sd16["special_care_embeds_weights"][:] = 2.0
+    print(f"post: concept 0 planted on synthetic frame {k}: CPU cosines "
+          f"{[round(c, 4) for c in cos.tolist()]}, threshold "
+          f"{(cos[k].item() + near) / 2:.4f} (half-gap "
+          f"{(cos[k].item() - near) / 2:.4f})")
+    smodels = models.with_safety_checker(SafetyChecker.build(scfg, sd16, bf16))
+    spipe = StableDiffusionWalkPipeline(smodels, dev)
+    expected = [j == k for j in range(len(synth))]
+    src = torch.from_numpy(synth).to(dev)
+    flags = spipe.engine.check_safety(src.float() / 255.0).cpu().tolist()
+    blacked, pflags = spipe._postprocess_frames(src, False)
+    kept = [np.array_equal(blacked[j], synth[j]) for j in range(len(synth))]
+    print(f"post: bf16 checker on the card flags {flags}; _postprocess "
+          f"blacks out {[not c for c in kept]}")
+    if flags != expected or pflags.tolist() != expected or \
+            blacked[k].any() or not all(kept[:k] + kept[k + 1:]):
+        raise AssertionError("the planted concept was not flagged alone")
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spipe.engine.check_safety(src.float() / 255.0).cpu()
+        times.append(time.perf_counter() - t0)
+    bound = 2 * SAFETY_MACS * 8 / PEAK_OPS[2]
+    print(f"post: check_safety of 8 frames at 512² (bf16 tower): least of 3 "
+          f"warm {min(times[1:]):.4f} s (first {times[0]:.4f} s) against a "
+          f"bound of {bound * 1e3:.3f} ms ({2 * SAFETY_MACS / 1e12:.3f} TFLOP "
+          f"a frame at 989 TFLOP/s), on {line}")
+    del spipe, src, ref
+
+    # ToMe's plan, merge and unmerge at level 0 (16, 4096, 320) in fp32.
+    # Plan features whose arithmetic is exact in any order (each token one
+    # channel at a random scale: every dot product is one rounded
+    # product), so the card's plan must equal the CPU's index for index
+    rng = np.random.default_rng(31)
+    xe = np.zeros((16, 4096, 320), np.float32)
+    np.put_along_axis(xe, rng.integers(0, 320, (16, 4096, 1)),
+                      rng.uniform(0.5, 2.0, (16, 4096, 1)).astype(np.float32),
+                      axis=2)
+    xe = torch.from_numpy(xe)
+    n_merge = int(TOME_RATIO * 4096)
+    plan_cpu = build_plan(xe, 64, 64, n_merge)
+    plan_dev = build_plan(xe.to(dev), 64, 64, n_merge)
+    for field in ("src_idx", "dst_idx", "kept", "merged", "assign"):
+        if not torch.equal(getattr(plan_dev, field).cpu(),
+                           getattr(plan_cpu, field)):
+            raise AssertionError(f"ToMe plan {field} differs from the CPU's")
+    xr = torch.randn(16, 4096, 320, generator=torch.Generator().manual_seed(3))
+    plan_on = plan_cpu._replace(**{
+        f: getattr(plan_cpu, f).to(dev)
+        for f in ("src_idx", "dst_idx", "kept", "merged", "assign")})
+    m_cpu, m_dev = merge(xr, plan_cpu), merge(xr.to(dev), plan_on)
+    u_cpu = unmerge(m_cpu * 2.0, plan_cpu, 4096)
+    u_dev = unmerge(m_dev * 2.0, plan_on, 4096).cpu()
+    for label, got, want in (("merge", m_dev.cpu(), m_cpu),
+                             ("unmerge", u_dev, u_cpu)):
+        torch.testing.assert_close(got, want, **OPS_TOL,
+                                   msg=lambda m: f"ToMe {label}: {m}")
+    hb = torch.randn(16, 4096, 320, device=dev).to(bf16)
+    plan_ms = time_ms(torch, lambda: build_plan(hb, 64, 64, n_merge))
+    plan_b = build_plan(hb, 64, 64, n_merge)
+    mu_ms = time_ms(torch, lambda: unmerge(merge(hb, plan_b), plan_b, 4096))
+    print(f"post: ToMe at (16, 4096, 320), {n_merge} merged: the plan on the "
+          f"card equals the CPU's index for index; merge and unmerge fp32 "
+          f"max_abs_err {(m_dev.cpu() - m_cpu).abs().max().item():.3e}, "
+          f"{(u_dev - u_cpu).abs().max().item():.3e} ({OPS_TOL}); bf16 "
+          f"features: a plan {plan_ms:.4f} ms, merge + unmerge "
+          f"{mu_ms:.4f} ms")
+    del xe, xr, m_dev, u_dev, hb, plan_b, plan_dev, plan_on
+
+    # FreeU's filter at the skips of up blocks 0 and 1 (CFG batch 16)
+    for shape in ((16, 1280, 8, 8), (16, 1280, 16, 16)):
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(4))
+        want = fourier_lowpass_scale(x, 1, 0.2)
+        got = fourier_lowpass_scale(x.to(dev), 1, 0.2).cpu()
+        torch.testing.assert_close(got, want, **OPS_TOL,
+                                   msg=lambda m: f"FreeU filter: {m}")
+        print(f"post: FreeU filter fp32 at {shape}: card vs CPU max_abs_err "
+              f"{(got - want).abs().max().item():.3e} ({OPS_TOL})")
+
+    # dispatches of 8: ToMe 0.5 and FreeU in turns with plain; tome=0 and
+    # neutral FreeU factors against plain
+    run = dict(num_inference_steps=50, guidance_scale=7.5,
+               output_dtype="uint8")
+    cond, uncond, noise = dispatch_inputs(torch, StableDiffusionWalkPipeline(
+        models, dev, safety=False))
+    engines = {"plain": Engine(models, dev),
+               "ToMe 0.5": Engine(models.with_tome(TOME_RATIO), dev),
+               "FreeU": Engine(models.with_freeu(True), dev)}
+    res = {}
+    out["tome_dispatch"], _ = counted_run(
+        torch, "post ToMe 0.5 dispatch", lambda: res.update(
+            tome=engines["ToMe 0.5"].denoise_frames(cond, uncond, noise,
+                                                    **run)))
+    timed = in_turns(torch, {
+        label: (lambda label=label, eng=eng: res.update({
+            label: eng.denoise_frames(cond, uncond, noise, **run)}))
+        for label, eng in engines.items()})
+    for label in ("ToMe 0.5", "FreeU"):
+        print(f"post: warm dispatch of 8 frames, pndm-50 CFG 7.5, least of "
+              f"2 in turns: {label} {timed[label]:.4f} s, plain "
+              f"{timed['plain']:.4f} s, ratio "
+              f"{timed[label] / timed['plain']:.4f}, on {line}")
+    for label, models_ in (("tome=0", models.with_tome(0.0)),
+                           ("freeu=(1, 1, 1, 1)",
+                            models.with_freeu((1, 1, 1, 1)))):
+        got = Engine(models_, dev).denoise_frames(cond, uncond, noise, **run)
+        diff = int(np.abs(got.astype(int) - res["plain"]).max())
+        print(f"post: {label} dispatch vs plain, 8 uint8 frames: max "
+              f"difference {diff}/255")
+        if label == "tome=0" and diff != 0 or diff > 2:
+            raise AssertionError(f"{label} moved the frames by {diff}/255")
+    del engines, res
+    torch.cuda.empty_cache()
+
+    # the composite walk: safety, upsample, ToMe 0.5 and FreeU, 16 frames
+    name = "chip_smoke_post"
+    shutil.rmtree(WORK / name, ignore_errors=True)
+    comp = StableDiffusionWalkPipeline(smodels, dev, tome=TOME_RATIO,
+                                       freeu=True)
+    comp._ensure_upsampler(str(pth))
+    spans = {"upsample": DeviceSpans(torch, comp.upsampler, "_run"),
+             "safety": DeviceSpans(torch, comp.engine, "check_safety")}
+    flagged = []
+    check = comp.engine.check_safety
+    comp.engine.check_safety = lambda images: flagged.append(
+        check(images)) or flagged[-1]
+    result = {}
+    walk_kw = dict(prompts=["a red fox in the snow", "a lighthouse at dusk"],
+                   seeds=[42, 1337], num_interpolation_steps=16,
+                   output_dir=str(WORK), name=name, height=512, width=512,
+                   num_inference_steps=50, guidance_scale=7.5, batch_size=8,
+                   upsample=True, upsample_weights=str(pth))
+    out["composite_walk"], walk_s = counted_run(
+        torch, "post composite walk", lambda: result.update(
+            video=comp.walk(**walk_kw)))
+    run_dir = WORK / name
+    first = read_frames(run_dir, 16)
+    n_flags = int(sum(f.sum().item() for f in flagged))
+    cap = cv2.VideoCapture(result["video"])
+    video = (int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+             int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+             int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+    cap.release()
+    print(f"post: composite walk (safety, upsample fp32, ToMe 0.5, FreeU) "
+          f"of 16 frames: {walk_s:.3f} s wall (first dispatch included), "
+          f"{16 / walk_s:.4f} frames/s; device time a frame: upsampling "
+          f"{spans['upsample'].seconds() / 16:.4f} s, safety "
+          f"{spans['safety'].seconds() / 16:.4f} s; {n_flags} frame(s) "
+          f"flagged; video {Path(result['video']).name} {video[0]} frames of "
+          f"{video[1]}x{video[2]}; on {line}")
+    if video != (16, 2048, 2048) or first.shape != (16, 2048, 2048, 3):
+        raise AssertionError(f"composite walk: video {video}, frames "
+                             f"{first.shape}")
+    clip = run_dir / f"{name}_000000"
+    for p in sorted(clip.glob("frame*.png"))[8:]:
+        p.unlink()
+    for p in clip.glob(f"{name}_000000.*"):
+        p.unlink()  # a clip with its video is complete: resume skips it
+    fresh = StableDiffusionWalkPipeline(smodels, dev, tome=TOME_RATIO,
+                                        freeu=True)
+    out["composite_resume"], resume_s = counted_run(
+        torch, "post composite resume", lambda: fresh.walk(
+            output_dir=str(WORK), name=name, resume=True))
+    again = read_frames(run_dir, 16)
+    print(f"post: resume after deleting the last 8 PNGs: {resume_s:.3f} s; "
+          f"upsampler from prompt_config.json "
+          f"{Path(fresh._upsampler_source() or '-').name}; rebuilt frames "
+          f"{again.shape[1:3]} vs the first run's max difference "
+          f"{int(np.abs(again.astype(int) - first).max())}/255")
+    if again.shape != first.shape or \
+            fresh._upsampler_source() != str(pth):
+        raise AssertionError("the resume did not rebuild the upsampled "
+                             "frames from the recorded weights")
+    shutil.rmtree(run_dir)
+    pth.unlink()
+    del comp, fresh, smodels
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1617,11 +2038,11 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep, distilled, families, edit, addons = \
-        (None,) * 7
+    summary, launches, fewstep, distilled, families, edit, addons, post = \
+        (None,) * 8
     frames, xl_parts = None, None
     models = (sd1_bundle(torch)
-              if {"main", "fewstep", "distilled", "edit", "addons"}
+              if {"main", "fewstep", "distilled", "edit", "addons", "post"}
               & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
@@ -1644,8 +2065,10 @@ def main():
         elif name == "edit":
             edit = phase_edit(torch, models, frames, xl_parts)
             xl_parts = None
-        else:
+        elif name == "addons":
             addons = phase_addons(torch, models, frames)
+        else:
+            post = phase_post(torch, models, frames)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -1675,6 +2098,8 @@ def main():
                               for run, counts in edit.items()}
         k["launches_addons"] = {run: counts[wrapper[k["name"]]]
                                 for run, counts in addons.items()}
+        k["launches_post"] = {run: counts[wrapper[k["name"]]]
+                              for run, counts in post.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

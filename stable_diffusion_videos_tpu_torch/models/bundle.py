@@ -10,7 +10,9 @@ beside the KL one (``with_taesd``).  Families: SD 1.x, SD 2.x (OpenCLIP-H,
 64-channel heads; the 768-v point predicts v), SDXL-base (a second text
 tower, OpenCLIP-bigG, whose projected pooled output feeds the UNet's
 text_time conditioning; ``is_xl``) and the SDXL refiner (bigG alone, 5
-text_time ids; ``refiner``).
+text_time ids; ``refiner``).  A bundle may carry the NSFW safety checker
+(``safety_checker()``), and ``with_freeu``/``with_tome`` give a copy whose
+UNet applies FreeU or ToMe around the same weight tensors.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import torch
 
 from ..core.schedulers import SchedulerConfig
 from .clip_text import CLIPTextConfig, CLIPTextEncoder
+from .safety import SafetyChecker, SafetyConfig
 from .taesd import AutoencoderTiny, TAESDConfig
 from .tokenizer import BaseTokenizer, HashTokenizer
 from .unet import UNet2DCondition, UNetConfig
 from .vae import AutoencoderKL, VAEConfig
-from .weights import load_state_dict, random_state_dict
+from .weights import load_state_dict, random_state_dict, shared_copy
 
 
 @dataclasses.dataclass
@@ -49,6 +52,8 @@ class SDModels:
     text_encoder_2: Optional[CLIPTextEncoder] = None
     #: tower 2's tokenizer (OpenCLIP pads with 0, not with EOS)
     tokenizer_2: Optional[BaseTokenizer] = None
+    #: the NSFW safety checker (``models/safety.py``), if attached
+    safety: Optional[SafetyChecker] = None
 
     @property
     def is_xl(self) -> bool:
@@ -79,10 +84,51 @@ class SDModels:
     def to(self, device: torch.device) -> "SDModels":
         """Move the modules to ``device`` (in place) and return the bundle."""
         for m in (self.unet, self.vae, self.text_encoder, self.text_encoder_2,
-                  self.taesd):
+                  self.taesd, self.safety):
             if m is not None:
                 m.to(device)
         return self
+
+    def with_tome(self, ratio: float, max_level: int = 0) -> "SDModels":
+        """Bundle copy whose UNet merges ``ratio`` of the self-attention
+        tokens (ToMe-SD, ``ops/tome.py``) at the resolution levels up to
+        ``max_level`` (0: the highest alone, tomesd's default); ratio 0
+        switches it off.  The copy shares every weight tensor."""
+        if not 0.0 <= ratio < 1.0:
+            raise ValueError("tome ratio must be in [0, 1)")
+        unet = shared_copy(self.unet)
+        unet.set_tome((float(ratio), int(max_level)) if ratio else None)
+        return dataclasses.replace(self, unet=unet)
+
+    def with_freeu(self, freeu) -> "SDModels":
+        """Bundle copy whose UNet applies FreeU: ``True`` takes the
+        published factors of the family (Si et al. 2023: SD 1.x (1.5, 1.6,
+        0.9, 0.2), SD 2.x, a 1024-wide context, (1.4, 1.6, 0.9, 0.2), SDXL
+        (1.3, 1.4, 0.9, 0.2)), a 4-tuple sets (b1, b2, s1, s2), a false
+        value switches it off.  The copy shares every weight tensor."""
+        if freeu is True:
+            if self.is_xl:
+                freeu = (1.3, 1.4, 0.9, 0.2)
+            elif self.unet_config.cross_attention_dim == 1024:
+                freeu = (1.4, 1.6, 0.9, 0.2)
+            else:
+                freeu = (1.5, 1.6, 0.9, 0.2)
+        elif freeu:
+            freeu = tuple(float(f) for f in freeu)
+            if len(freeu) != 4:
+                raise ValueError("freeu must be (b1, b2, s1, s2)")
+        unet = shared_copy(self.unet)
+        unet.freeu = freeu or None
+        return dataclasses.replace(self, unet=unet)
+
+    def safety_checker(self) -> Optional[SafetyChecker]:
+        """The safety checker module, or None when the bundle has none."""
+        return self.safety
+
+    def with_safety_checker(self, checker: SafetyChecker) -> "SDModels":
+        """Bundle copy with ``checker`` attached, on the UNet's device."""
+        checker.to(self.unet.conv_in.weight.device)
+        return dataclasses.replace(self, safety=checker)
 
     def taesd_decoder(self):
         """The TAESD decoder module, or None when the bundle carries no
@@ -149,12 +195,18 @@ class SDModels:
             taesd_config, random_state_dict(shapes, seed + 3, std, dtype))
 
     @classmethod
-    def tiny(cls, seed: int = 0, taesd: bool = False) -> "SDModels":
+    def tiny(cls, seed: int = 0, taesd: bool = False,
+             with_safety: bool = False) -> "SDModels":
         """Tiny fp32 bundle: every code path, CPU-runnable; with ``taesd``
-        a one-stage TAESD decoder too."""
-        return cls.build(UNetConfig.tiny(), VAEConfig.tiny(),
-                         CLIPTextConfig.tiny(), seed, 0.1, torch.float32,
-                         TAESDConfig.tiny() if taesd else None)
+        a one-stage TAESD decoder too, with ``with_safety`` a tiny safety
+        checker (weights from ``seed + 5``)."""
+        models = cls.build(UNetConfig.tiny(), VAEConfig.tiny(),
+                           CLIPTextConfig.tiny(), seed, 0.1, torch.float32,
+                           TAESDConfig.tiny() if taesd else None)
+        if not with_safety:
+            return models
+        return models.with_safety_checker(SafetyChecker.random(
+            SafetyConfig.tiny(), seed + 5, 0.1))
 
     @classmethod
     def tiny_xl(cls, seed: int = 0) -> "SDModels":
@@ -176,8 +228,8 @@ class SDModels:
 
     @classmethod
     def random(cls, family: str = "sd1", seed: int = 1,
-               dtype: torch.dtype = torch.bfloat16,
-               taesd: bool = False) -> "SDModels":
+               dtype: torch.dtype = torch.bfloat16, taesd: bool = False,
+               with_safety: bool = False) -> "SDModels":
         """A family's published geometry with weights drawn N(0, 0.02):
         "sd1" (CLIP-L, the 860M UNet, the KL autoencoder), "sd2" (SD 2.1
         768-v: OpenCLIP-H, the UNet at 96² latents, SD 1.x's VAE, a
@@ -185,9 +237,19 @@ class SDModels:
         OpenCLIP-bigG, the 2.6B UNet at 128² latents, the SDXL VAE) or
         "sdxl_refiner" (SDXL-refiner 1.0: OpenCLIP-bigG alone, the 2.3B
         refiner UNet, the SDXL VAE); with ``taesd`` the TAESD decoder and
-        encoder at their published geometry too.  The 0.02 is load-bearing
-        in bf16: unit-scale weights overflow the UNet's residual sums
-        within a few blocks."""
+        encoder at their published geometry too, with ``with_safety`` the
+        safety checker at CompVis's geometry (``SafetyChecker.random``,
+        seed ``seed + 5``).  The 0.02 is load-bearing in bf16: unit-scale
+        weights overflow the UNet's residual sums within a few blocks."""
+        models = cls._random(family, seed, dtype, taesd)
+        if not with_safety:
+            return models
+        return models.with_safety_checker(SafetyChecker.random(
+            SafetyConfig.sd_v1(), seed + 5, 0.02, dtype))
+
+    @classmethod
+    def _random(cls, family: str, seed: int, dtype: torch.dtype,
+                taesd: bool) -> "SDModels":
         taesd_config = TAESDConfig.sd() if taesd else None
         if family == "sd1":
             return cls.build(UNetConfig.sd_v1(), VAEConfig.sd_v1(),

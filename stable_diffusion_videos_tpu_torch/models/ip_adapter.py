@@ -32,7 +32,7 @@ from torch import nn
 
 from .safety import (CLIP_IMAGE_MEAN, CLIP_IMAGE_STD, CLIPVisionConfig,
                      CLIPVisionEncoder)
-from .weights import (_lin, _norm, find_weights_file, load_state_dict,
+from .weights import (clip_vision, find_weights_file, load_state_dict,
                       random_state_dict, read_safetensors, read_weights,
                       shared_copy)
 
@@ -297,23 +297,8 @@ class IPAdapter:
 def jax_vision_state_dict(tree: dict, projection, config) -> dict:
     """The JAX ``CLIPVisionEncoder`` tree and (hidden, projection) matrix
     -> transformers ``CLIPVisionModelWithProjection`` names."""
-    p, out = tree["params"], {}
-    pre = "vision_model."
-    out[f"{pre}embeddings.patch_embedding.weight"] = np.transpose(
-        np.asarray(p["patch_embedding"]["kernel"]), (3, 2, 0, 1))
-    out[f"{pre}embeddings.position_embedding.weight"] = np.asarray(
-        p["position_embedding"]["embedding"])
-    out[f"{pre}embeddings.class_embedding"] = np.asarray(p["class_embedding"])
-    _norm(p["pre_layrnorm"], f"{pre}pre_layrnorm", out)
-    _norm(p["post_layernorm"], f"{pre}post_layernorm", out)
-    for i in range(config.num_layers):
-        b, blk = f"{pre}encoder.layers.{i}", p[f"layers_{i}"]
-        _norm(blk["layer_norm1"], f"{b}.layer_norm1", out)
-        _norm(blk["layer_norm2"], f"{b}.layer_norm2", out)
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _lin(blk[proj], f"{b}.self_attn.{proj}", out)
-        _lin(blk["fc1"], f"{b}.mlp.fc1", out)
-        _lin(blk["fc2"], f"{b}.mlp.fc2", out)
+    out = {}
+    clip_vision(tree["params"], "vision_model.", config.num_layers, out)
     out["visual_projection.weight"] = np.asarray(projection).T
     return out
 

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.groupnorm import fused_groupnorm_silu
+from ..ops.tome import tome_wrap
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -188,11 +189,17 @@ class GEGLUFeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> GEGLU FF, pre-LN residual blocks."""
+    """self-attn -> cross-attn -> GEGLU FF, pre-LN residual blocks.
+
+    ``tome_ratio`` > 0 runs the self-attention on the ToMe-merged normed
+    tokens (``ops/tome.py``: merge, attn1, unmerge; ``hw`` is the token
+    grid the 2x2 partition needs); the cross-attention, the IP-Adapter's
+    second attention and the FF see every token."""
 
     def __init__(self, dim: int, context_dim: int, num_heads: int,
-                 head_dim: int):
+                 head_dim: int, tome_ratio: float = 0.0):
         super().__init__()
+        self.tome_ratio = tome_ratio
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn1 = CrossAttention(dim, dim, num_heads, head_dim)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -200,8 +207,12 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = GEGLUFeedForward(dim)
 
-    def forward(self, x, context):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context, hw=None):
+        h = self.norm1(x)
+        if self.tome_ratio > 0.0:
+            x = x + tome_wrap(self.attn1, h, *hw, self.tome_ratio)
+        else:
+            x = x + self.attn1(h)
         x = x + self.attn2(self.norm2(x), context)
         return x + self.ff(self.norm3(x))
 
@@ -226,7 +237,7 @@ class SpatialTransformer(nn.Module):
         out = self.proj_in(self.norm(x))
         out = out.permute(0, 2, 3, 1).reshape(b, h * w, c)
         for blk in self.transformer_blocks:
-            out = blk(out, context)
+            out = blk(out, context, (h, w))
         out = out.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(out) + x
 

@@ -1,15 +1,26 @@
-"""The CLIP image tower, PyTorch.
+"""The CLIP image tower and the NSFW safety checker, PyTorch.
 
-Counterpart of the tower in ``stable_diffusion_videos_tpu/models/safety.py``
-(``CLIPVisionConfig``, ``CLIPVisionEncoder``): a ViT with a bias-free patch
-convolution, a class token and learned positions, ``pre_layrnorm``, pre-LN
-blocks with unmasked attention (plain PyTorch, as ``masked_attention`` is
-plain XLA in the JAX package) and the MLP activation of the config, then
+Counterpart of ``stable_diffusion_videos_tpu/models/safety.py``
+(``CLIPVisionConfig``, ``CLIPVisionEncoder``, ``SafetyConfig``,
+``SafetyChecker``, ``preprocess_for_safety``).  The tower: a ViT with a
+bias-free patch convolution, a class token and learned positions,
+``pre_layrnorm``, pre-LN blocks with unmasked attention (plain PyTorch, as
+``masked_attention`` is plain XLA in the JAX package) and the MLP
+activation of the config, then
 ``post_layernorm`` at the class token.  ``CLIPVisionModelWithProjection``
 adds the bias-free ``visual_projection``.  Module names follow transformers
 (``vision_model.encoder.layers.0...``), so its state dicts load without
 renaming.  The IP-Adapter (``models/ip_adapter.py``) embeds its image prompt
-here.  The NSFW concept head of the safety checker is not ported.
+here.
+
+The safety checker (diffusers' ``StableDiffusionSafetyChecker``, names and
+all: ``vision_model.vision_model.*``, ``visual_projection``,
+``concept_embeds``, ``special_care_embeds`` and their ``_weights``): OpenAI's
+ViT-L/14 tower (quick_gelu), its projection normalised, cosines against 17
+concept and 3 special-care embeddings, a frame flagged when a concept's
+cosine passes its threshold; a special-care hit lowers every concept
+threshold by 0.01.  The head's parameters stay fp32 whatever the tower's
+dtype, as the JAX package's do.
 
 ``hidden_act`` is the config's: the JAX package hard-codes quick_gelu,
 which is OpenAI CLIP's activation and the default here; OpenCLIP towers,
@@ -20,8 +31,11 @@ in their ``config.json``.
 from __future__ import annotations
 
 import dataclasses
+import json
+from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .clip_text import CLIPEncoderLayer
@@ -134,3 +148,150 @@ class CLIPVisionEncoder(nn.Module):
     def forward(self, pixels, project: bool = True):
         pooled = self.vision_model(pixels)
         return self.visual_projection(pooled) if project else pooled
+
+
+class CLIPVisionModel(nn.Module):
+    """transformers' ``CLIPVisionModel``: the tower without a projection,
+    under ``vision_model.*``."""
+
+    def __init__(self, config: CLIPVisionConfig):
+        super().__init__()
+        self.vision_model = CLIPVisionTransformer(config)
+
+    def forward(self, pixels):
+        return self.vision_model(pixels)
+
+
+@dataclasses.dataclass(frozen=True)
+class SafetyConfig:
+    vision: CLIPVisionConfig = dataclasses.field(
+        default_factory=CLIPVisionConfig)
+    num_concepts: int = 17
+    num_special: int = 3
+
+    @classmethod
+    def sd_v1(cls):
+        """CompVis/stable-diffusion-safety-checker: OpenAI ViT-L/14 at 224²
+        (patch 14, width 1024, 24 layers, 16 heads, projection 768,
+        quick_gelu), 17 concepts and 3 special-care embeddings."""
+        return cls()
+
+    @classmethod
+    def tiny(cls):
+        return cls(vision=CLIPVisionConfig.tiny())
+
+
+#: the head's parameters, kept in fp32
+SAFETY_HEAD = ("concept_embeds", "concept_embeds_weights",
+               "special_care_embeds", "special_care_embeds_weights")
+
+
+class SafetyChecker(nn.Module):
+    """(B, 3, S, S) CLIP-normalised frames -> (B,) bool NSFW flags."""
+
+    def __init__(self, config: SafetyConfig):
+        super().__init__()
+        self.config = config
+        v, p = config.vision, config.vision.projection_dim
+        self.vision_model = CLIPVisionModel(v)
+        self.visual_projection = nn.Linear(v.hidden_size, p, bias=False)
+        self.concept_embeds = nn.Parameter(torch.ones(config.num_concepts, p))
+        self.concept_embeds_weights = nn.Parameter(
+            torch.ones(config.num_concepts))
+        self.special_care_embeds = nn.Parameter(
+            torch.ones(config.num_special, p))
+        self.special_care_embeds_weights = nn.Parameter(
+            torch.ones(config.num_special))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.visual_projection.weight.dtype
+
+    def embed(self, pixels) -> torch.Tensor:
+        """The projected image embedding, unit length, fp32: (B, 768)."""
+        emb = self.visual_projection(self.vision_model(pixels)).float()
+        return emb / emb.norm(dim=-1, keepdim=True)
+
+    def forward(self, pixels, adjustment: float = 0.0) -> torch.Tensor:
+        """``adjustment`` moves every threshold (diffusers: 0.0 strict,
+        -0.01 lenient)."""
+        emb = self.embed(pixels)
+
+        def cos(embeds):
+            embeds = embeds.float()
+            return emb @ (embeds / embeds.norm(dim=-1, keepdim=True)).T
+
+        special = (cos(self.special_care_embeds)
+                   - self.special_care_embeds_weights.float() + adjustment)
+        concept_adj = 0.01 * (special > 0).any(dim=1, keepdim=True)
+        concept = (cos(self.concept_embeds)
+                   - self.concept_embeds_weights.float() + adjustment
+                   + concept_adj)
+        return (concept > 0).any(dim=1)
+
+    @classmethod
+    def build(cls, config: SafetyConfig, state_dict: dict,
+              dtype: torch.dtype = torch.float32) -> "SafetyChecker":
+        """The checker of a diffusers-named state dict: the tower in
+        ``dtype``, the head in fp32."""
+        from .weights import load_state_dict
+        with torch.device("meta"):
+            checker = cls(config)
+        load_state_dict(checker, state_dict, dtype)
+        for name in SAFETY_HEAD:
+            setattr(checker, name, nn.Parameter(
+                getattr(checker, name).detach().float(), requires_grad=False))
+        return checker.eval().requires_grad_(False)
+
+    @classmethod
+    def random(cls, config: SafetyConfig, seed: int, std: float,
+               dtype: torch.dtype = torch.float32) -> "SafetyChecker":
+        """Every weight drawn N(0, std) from a numpy seed but the
+        LayerNorms', which start as an initialiser leaves them (scale 1,
+        bias 0), so that the embedding carries the image, and the
+        thresholds, 0.5 as the JAX package's initialiser sets them (a
+        random embedding's cosine with a random concept is about
+        ±1/sqrt(768), so nothing is flagged)."""
+        from .weights import random_state_dict
+        with torch.device("meta"):
+            shapes = cls(config)
+        sd = random_state_dict(shapes, seed, std)
+        for name, mod in shapes.named_modules():
+            if isinstance(mod, nn.LayerNorm):
+                sd[f"{name}.weight"][:] = 1.0
+                sd[f"{name}.bias"][:] = 0.0
+        for name in ("concept_embeds_weights", "special_care_embeds_weights"):
+            sd[name][:] = 0.5
+        return cls.build(config, sd, dtype)
+
+
+def load_safety_checker(directory, dtype: torch.dtype = torch.float32
+                        ) -> SafetyChecker:
+    """A diffusers ``safety_checker`` directory (``config.json`` with its
+    ``vision_config``, and the weights file) -> the checker; the concept
+    counts come from the tensors."""
+    from .weights import find_weights_file, read_weights
+    directory = Path(directory)
+    vision = CLIPVisionConfig.from_json(
+        json.loads((directory / "config.json").read_text()))
+    sd = read_weights(find_weights_file(directory))
+    # a buffer of older transformers releases, no weight
+    sd.pop("vision_model.vision_model.embeddings.position_ids", None)
+    config = SafetyConfig(vision=vision,
+                          num_concepts=sd["concept_embeds"].shape[0],
+                          num_special=sd["special_care_embeds"].shape[0])
+    return SafetyChecker.build(config, sd, dtype)
+
+
+def preprocess_for_safety(images: torch.Tensor,
+                          image_size: int) -> torch.Tensor:
+    """(B, H, W, 3) frames in [0, 1] -> CLIP-normalised (B, 3, S, S) fp32:
+    bilinear with half-pixel centres, antialiased when it shrinks (as
+    ``jax.image.resize(..., "bilinear")``)."""
+    x = F.interpolate(images.float().permute(0, 3, 1, 2),
+                      size=(image_size, image_size), mode="bilinear",
+                      antialias=True, align_corners=False)
+    # scalars, not a tensor built on the host: a copy to the card would
+    # wait for every kernel queued before it
+    return torch.stack([(x[:, c] - m) / s for c, (m, s) in enumerate(
+        zip(CLIP_IMAGE_MEAN, CLIP_IMAGE_STD))], dim=1)

@@ -12,6 +12,14 @@ residuals add to the skips and the mid block's output, and IP-Adapter image
 tokens reach every cross-attention.  Module names follow diffusers
 (``down_blocks.0.resnets.0...``); ``UNetTrunk`` (conv_in, embeddings, down
 path, mid block) is the part a ControlNet shares.
+
+Two opt-in levers of ``UNet2DCondition`` alone (a ControlNet never merges,
+as in the JAX package): FreeU (Si et al. 2023; ``freeu = (b1, b2, s1,
+s2)``) scales the first half of the backbone's channels and damps the
+skip's lowest spatial frequencies at the two deepest up blocks, and ToMe
+(``set_tome((ratio, max_level))``) merges the self-attention's tokens at
+the levels up to ``max_level`` of the down and up paths.  Both are set on a
+copy that shares the weights (``SDModels.with_freeu``/``with_tome``).
 """
 
 from __future__ import annotations
@@ -131,6 +139,23 @@ class UNetConfig:
                    attention_head_dim=2, attn_levels=(False, True, False),
                    transformer_depth=(0, 1, 1), addition_embed_dim=8,
                    addition_pooled_dim=16, addition_num_ids=5)
+
+
+def fourier_lowpass_scale(x: torch.Tensor, threshold: int,
+                          scale: float) -> torch.Tensor:
+    """Scale the lowest spatial frequencies of (B, C, H, W) by ``scale``:
+    FreeU's skip filter, a 2D FFT over the last two axes in fp32, the
+    centred (2·threshold)² box (rows and columns ``n // 2 ± threshold``)
+    multiplied by ``scale``, the inverse FFT's real part in x's dtype."""
+    h, w = x.shape[-2:]
+    freq = torch.fft.fftshift(torch.fft.fft2(x.float(), dim=(-2, -1)),
+                              dim=(-2, -1))
+    mask = torch.ones((h, w), device=x.device)
+    mask[h // 2 - threshold:h // 2 + threshold,
+         w // 2 - threshold:w // 2 + threshold] = scale
+    out = torch.fft.ifft2(torch.fft.ifftshift(freq * mask, dim=(-2, -1)),
+                          dim=(-2, -1))
+    return out.real.to(x.dtype)
 
 
 class UNetBlock(nn.Module):
@@ -276,6 +301,27 @@ class UNet2DCondition(UNetTrunk):
 
         self.conv_norm_out = GroupNorm32(chans[0], 32, eps=1e-5)
         self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
+        #: FreeU's (b1, b2, s1, s2) at up blocks 0 and 1 (the deepest), or
+        #: None
+        self.freeu: Optional[tuple] = None
+        #: ToMe's (ratio, max_level), or None (``set_tome``)
+        self.tome: Optional[tuple] = None
+
+    def set_tome(self, tome: Optional[tuple]) -> None:
+        """Merge ``ratio`` of the self-attention tokens in every transformer
+        block of the down and up levels up to ``max_level`` (0: the highest
+        resolution alone, tomesd's default); None switches it off.  The
+        mid block never merges."""
+        self.tome = tome
+        ratio, max_level = tome or (0.0, -1)
+        n = len(self.config.block_out_channels)
+        for level in range(n):
+            r = ratio if level <= max_level else 0.0
+            for blk in (self.down_blocks[level],
+                        self.up_blocks[n - 1 - level]):
+                for st in blk.attentions:
+                    for tb in st.transformer_blocks:
+                        tb.tome_ratio = r
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: torch.Tensor, *, cache_split=None,
@@ -306,7 +352,10 @@ class UNet2DCondition(UNetTrunk):
         IP-Adapter: ``ip_context`` (B, T, cross_attention_dim) image tokens
         go to every cross-attention's ``to_k_ip``/``to_v_ip`` (spliced by
         ``ip_adapter.IPAdapter.splice``), their attention added at
-        ``ip_scale``."""
+        ``ip_scale``.
+
+        FreeU (``self.freeu``) acts at up blocks 0 and 1 before each skip
+        is concatenated, ToMe (``set_tome``) inside the transformers."""
         cfg, dtype = self.config, self.dtype
         n_levels = len(cfg.block_out_channels)
         if cache_split is not None and not 1 <= cache_split <= n_levels - 1:
@@ -349,8 +398,14 @@ class UNet2DCondition(UNetTrunk):
             if shallow and level >= cache_split:
                 continue
             for j in range(len(blk.resnets)):
-                x = blk.layer(j, torch.cat([x, skips.pop()], dim=1), temb,
-                              ctx)
+                skip = skips.pop()
+                if self.freeu is not None and i in (0, 1):
+                    b, s = self.freeu[i], self.freeu[2 + i]
+                    half = x.shape[1] // 2
+                    x = torch.cat([x[:, :half] * torch.tensor(b, dtype=dtype),
+                                   x[:, half:]], dim=1)
+                    skip = fourier_lowpass_scale(skip, 1, s)
+                x = blk.layer(j, torch.cat([x, skip], dim=1), temb, ctx)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0](x)
             if cache_split is not None and not shallow \

@@ -10,7 +10,9 @@
   ``ff.net.0.proj``.  SDXL's ``add_embedding`` and the projected tower's
   ``text_projection`` map by the same rules.  The TAESD decoder's and
   encoder's trees map to diffusers ``AutoencoderTiny`` names
-  (``decoder.layers.N`` and ``encoder.layers.N``, conv_in at 0).
+  (``decoder.layers.N`` and ``encoder.layers.N``, conv_in at 0), the
+  safety checker's to diffusers ``StableDiffusionSafetyChecker`` names and
+  RRDBNet's to basicsr's.
 * ``load_state_dict(module, state_dict)`` loads diffusers-named numpy arrays,
   strict about missing and unexpected keys.  A
   transformer's ``proj_in``/``proj_out`` loads from either layout diffusers
@@ -25,6 +27,9 @@
 * ``shared_copy(module)`` copies a module's structure around the same
   parameter tensors, so an adapter merged into the copy leaves the original
   untouched without a second copy of its weights.
+* ``load_realesrgan(path)`` reads a Real-ESRGAN ``.pth`` (the weights inside
+  ``params_ema`` or ``params``) or ``.safetensors`` file and infers the
+  RRDBNet's geometry from its tensors.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ import torch
 from torch import nn
 
 from .clip_text import CLIPTextConfig
+from .rrdbnet import RRDBNetConfig
+from .safety import SafetyConfig
 from .taesd import TAESDConfig
 from .unet import UNetConfig
 from .vae import VAEConfig
@@ -232,14 +239,56 @@ def _taesd(p, config: TAESDConfig, out):
     _conv(p["conv_out"], f"decoder.layers.{i + 1}", out)
 
 
+def clip_vision(p, pre: str, num_layers: int, out):
+    """The JAX ``CLIPVisionEncoder`` tree -> transformers' tower names
+    under ``pre`` (``vision_model.`` in ``CLIPVisionModelWithProjection``,
+    ``vision_model.vision_model.`` in the safety checker)."""
+    out[f"{pre}embeddings.patch_embedding.weight"] = np.transpose(
+        np.asarray(p["patch_embedding"]["kernel"]), (3, 2, 0, 1))
+    out[f"{pre}embeddings.position_embedding.weight"] = np.asarray(
+        p["position_embedding"]["embedding"])
+    out[f"{pre}embeddings.class_embedding"] = np.asarray(p["class_embedding"])
+    _norm(p["pre_layrnorm"], f"{pre}pre_layrnorm", out)
+    _norm(p["post_layernorm"], f"{pre}post_layernorm", out)
+    for i in range(num_layers):
+        b, blk = f"{pre}encoder.layers.{i}", p[f"layers_{i}"]
+        _norm(blk["layer_norm1"], f"{b}.layer_norm1", out)
+        _norm(blk["layer_norm2"], f"{b}.layer_norm2", out)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _lin(blk[proj], f"{b}.self_attn.{proj}", out)
+        _lin(blk["fc1"], f"{b}.mlp.fc1", out)
+        _lin(blk["fc2"], f"{b}.mlp.fc2", out)
+
+
+def _safety(p, config: SafetyConfig, out):
+    clip_vision(p["vision_model"], "vision_model.vision_model.",
+                config.vision.num_layers, out)
+    _lin(p["visual_projection"], "visual_projection", out)
+    for name in ("concept_embeds", "concept_embeds_weights",
+                 "special_care_embeds", "special_care_embeds_weights"):
+        out[name] = np.asarray(p[name])
+
+
+def _rrdbnet(p, config: RRDBNetConfig, out):
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                 "conv_hr", "conv_last"):
+        _conv(p[name], name, out)
+    for i in range(config.num_block):
+        for r in (1, 2, 3):
+            for c in range(1, 6):
+                _conv(p[f"body_{i}"][f"rdb{r}"][f"conv{c}"],
+                      f"body.{i}.rdb{r}.conv{c}", out)
+
+
 _MAPPINGS = {UNetConfig: _unet, VAEConfig: _vae, CLIPTextConfig: _text,
-             TAESDConfig: _taesd}
+             TAESDConfig: _taesd, SafetyConfig: _safety,
+             RRDBNetConfig: _rrdbnet}
 
 
 def from_jax_params(tree: dict, config) -> dict[str, np.ndarray]:
     """JAX flax variables ``{"params": ...}`` of a UNet, VAE, CLIP text
-    encoder or TAESD decoder or encoder -> the diffusers-named state dict,
-    chosen by the config's type."""
+    encoder, TAESD decoder or encoder, safety checker or RRDBNet -> the
+    diffusers- (basicsr-) named state dict, chosen by the config's type."""
     out: dict[str, np.ndarray] = {}
     _MAPPINGS[type(config)](tree["params"], config, out)
     return out
@@ -359,3 +408,29 @@ def find_weights_file(directory) -> Path:
         if hits:
             return hits[0]
     raise FileNotFoundError(f"no weights file found under {directory}")
+
+
+def load_realesrgan(path) -> tuple[RRDBNetConfig, dict]:
+    """A Real-ESRGAN checkpoint -> (RRDBNetConfig, basicsr-named state
+    dict).  A ``.pth`` is read with ``torch.load(weights_only=True)`` and
+    unwrapped from ``params_ema`` (else ``params``); a ``.safetensors``
+    with ``read_safetensors``.  The geometry comes from the tensors: the
+    block count from ``body.*``, the widths from ``conv_first``,
+    ``body.0.rdb1.conv1`` and ``conv_last``, and the scale from
+    ``conv_first``'s input width (3: x4, 12: x2, 48: x1)."""
+    sd = read_weights(path)
+    for wrapper in ("params_ema", "params"):
+        if isinstance(sd.get(wrapper), dict):
+            sd = sd[wrapper]
+            break
+    first, last = sd["conv_first.weight"], sd["conv_last.weight"]
+    first_in = int(first.shape[1])
+    scale = {3: 4, 12: 2, 48: 1}.get(first_in, 4)
+    config = RRDBNetConfig(
+        in_channels=first_in // {4: 1, 2: 4, 1: 16}[scale],
+        out_channels=int(last.shape[0]), num_feat=int(first.shape[0]),
+        num_block=1 + max(int(k.split(".")[1]) for k in sd
+                          if k.startswith("body.")),
+        num_grow_ch=int(sd["body.0.rdb1.conv1.weight"].shape[0]),
+        scale=scale)
+    return config, sd

@@ -36,9 +36,17 @@ several 77-token windows; cond, uncond and both clip endpoints share one
 window count, and SDXL's pooled embedding comes from the prompt without its
 syntax).  LoRA and textual-inversion files merge into an ``SDModels`` before
 the pipeline is built (``models/lora_file.py``,
-``models/textual_inversion.py``).  Options of the JAX pipeline this port
-does not have yet (upsampling, the safety checker, FreeU, ToMe) raise when
-they are asked for.
+``models/textual_inversion.py``).
+
+Post-processing and the opt-in levers: ``safety=`` (the bundle's NSFW
+checker, on by default when it has one), ``upsample=`` (Real-ESRGAN,
+``pipeline/upsampling.py``, weights from ``upsample_weights=``,
+``SDV_REALESRGAN`` or an assigned ``pipeline.upsampler``), ``freeu=`` and
+``tome=`` (``SDModels.with_freeu``/``with_tome``), ``embed_interp`` and
+``noise_interp``; ``generate``/``__call__`` is one txt2img dispatch.  Frames
+are quantised, checked, blacked out where flagged and upsampled on the
+device, after the next batch is enqueued, then copied to the host.  The
+JAX pipeline's ``mesh`` stays refused (one card).
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -65,14 +74,13 @@ from ..media.video import make_video as assemble
 from ..models.bundle import SDModels
 from ..models.controlnet import load_controlnet
 from ..models.ip_adapter import load_ip_adapter
-from ..runtime.engine import Engine, refuse_unported
+from ..runtime.engine import Engine, quantise, refuse_unported
+from .upsampling import RealESRGANModel
 
 logger = logging.getLogger("sdv_torch")
 
-_PIPELINE_UNPORTED = ("embed_interp", "noise_interp", "safety", "freeu",
-                      "tome", "mesh")
-_FRAMES_UNPORTED = ("upsample", "upsample_weights")
-_WALK_UNPORTED = ("upsample", "upsample_weights", "params", "jit")
+_PIPELINE_UNPORTED = ("mesh",)
+_INTERP = {"lerp": lerp, "slerp": slerp}
 _IMAGE_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
 
@@ -185,16 +193,36 @@ class StableDiffusionWalkPipeline:
                  step_cache_policy: str = "uniform",
                  guidance_rescale: float = 0.0, guidance_interval=None,
                  frozen_noise: bool = False, prompt_weighting: bool = False,
-                 controlnet=None, ip_adapter=None, **unported):
+                 controlnet=None, ip_adapter=None,
+                 safety: Optional[bool] = None, freeu=None, tome=None,
+                 embed_interp: str = "lerp", noise_interp: str = "slerp",
+                 **unported):
         """``controlnet``: a diffusers ControlNetModel directory or weights
         file, a ``ControlNetBundle``, or a list of them (multi-ControlNet).
         ``ip_adapter``: an IP-Adapter checkpoint, ``(checkpoint,
         image-encoder directory)`` or an ``IPAdapter``.
         ``prompt_weighting``: read prompts in the emphasis syntax and let
         them run past 77 tokens (off by default, so that parentheses in a
-        prompt stay literal)."""
+        prompt stay literal).
+        ``safety``: black out the frames the bundle's safety checker flags;
+        None is on when the bundle has a checker (with a warning when it
+        has none).  ``freeu``: True (the family's published factors) or
+        (b1, b2, s1, s2).  ``tome``: a ratio, or (ratio, max_level).
+        ``embed_interp``/``noise_interp``: "lerp" or "slerp", the
+        trajectories of the text embeddings and of the initial noise."""
         refuse_unported("StableDiffusionWalkPipeline", _PIPELINE_UNPORTED,
                         unported)
+        for name, value in (("embed_interp", embed_interp),
+                            ("noise_interp", noise_interp)):
+            if value not in _INTERP:
+                raise ValueError(f"{name} must be one of {sorted(_INTERP)}, "
+                                 f"got {value!r}")
+        if freeu:
+            models = models.with_freeu(freeu)
+        if tome:
+            if isinstance(tome, (int, float)):
+                tome = (float(tome), 0)
+            models = models.with_tome(*tome)
         if fast:
             # the JAX package's presets, explicit kwargs win: SD 1.x/2.x
             # step_cache=3 x guidance_interval (0.1, 0.85); SDXL
@@ -231,6 +259,20 @@ class StableDiffusionWalkPipeline:
         #: the engine's bundle (with an IP-Adapter, its UNet carries the
         #: adapter's projections)
         self.models = self.engine.models
+        self.embed_interp, self.noise_interp = embed_interp, noise_interp
+        if safety is None:
+            safety = self.models.safety_checker() is not None
+            if not safety:
+                logger.warning(
+                    "This bundle has no safety checker: NSFW filtering is "
+                    "off.  Attach one (SDModels.with_safety_checker) or pass "
+                    "safety=False to silence this warning; see the Stable "
+                    "Diffusion license's conditions of use.")
+        self.safety = bool(safety)
+        #: the Real-ESRGAN upsampler (``_ensure_upsampler``), or None
+        self.upsampler: Optional[RealESRGANModel] = None
+        #: (weights path, model) of the upsampler this pipeline loaded
+        self._loaded_upsampler: Optional[tuple] = None
 
     @classmethod
     def tiny(cls, device: torch.device, seed: int = 0,
@@ -303,24 +345,104 @@ class StableDiffusionWalkPipeline:
                         noise_shape, T, batch_size: int,
                         num_chunks: Optional[int] = None):
         """Interpolated (embeds, noise, pooled) batches for one clip: the
-        whole trajectory is built at once, then cut into dispatch batches.
+        whole trajectory is built at once (``embed_interp``, default lerp;
+        ``noise_interp``, default slerp), then cut into dispatch batches.
         ``pooled`` is None but for SDXL, whose pooled embedding walks the
-        same lerp trajectory.  Under ``prompt_weighting`` the endpoints are
-        weighted contexts of ``num_chunks`` windows."""
+        embeddings' trajectory.  Under ``prompt_weighting`` the endpoints
+        are weighted contexts of ``num_chunks`` windows."""
         embeds_a = self._embed(prompt_a, num_chunks)
         embeds_b = self._embed(prompt_b, num_chunks)
         noise_a = self.init_noise(seed_a, noise_shape)
         noise_b = self.init_noise(seed_b, noise_shape)
         T = np.asarray(T, np.float32)
-        embeds = lerp(T, embeds_a[0], embeds_b[0])
-        noise = slerp(T, noise_a[0], noise_b[0])
+        interp_e = _INTERP[self.embed_interp]
+        embeds = interp_e(T, embeds_a[0], embeds_b[0])
+        noise = _INTERP[self.noise_interp](T, noise_a[0], noise_b[0])
         pooled = None
         if self.models.is_xl:
-            pooled = lerp(T, self._pooled(prompt_a)[0],
-                          self._pooled(prompt_b)[0])
+            pooled = interp_e(T, self._pooled(prompt_a)[0],
+                              self._pooled(prompt_b)[0])
         for i in range(0, len(T), batch_size):
             yield (embeds[i:i + batch_size], noise[i:i + batch_size],
                    None if pooled is None else pooled[i:i + batch_size])
+
+    # ------------------------------------------------------------------
+    # post-processing
+    # ------------------------------------------------------------------
+    def _postprocess_frames(self, images, upsample: bool) -> tuple:
+        """(B, H, W, 3) frames, uint8 or float in [0, 1], on the device or
+        the host -> (uint8 frames on the host, the safety flags or None).
+        On the device: quantised, checked by the safety checker on
+        uint8/255 (with ``safety``), flagged frames blacked out, then, when
+        ``upsample``, upsampled by ``self.upsampler`` and quantised again;
+        the copy to the host is the only wait.  ``walk``, ``make_clip_frames``
+        and ``generate_images`` upsample when their ``upsample`` asks; the
+        edit paths and ``generate``, which take no such argument, upsample
+        when ``self.upsampler`` is set, as the JAX package's do."""
+        x = torch.as_tensor(images).to(self.device)
+        if x.dtype != torch.uint8:
+            x = quantise(x.float().clamp(0.0, 1.0))
+        flags = None
+        if self.safety:
+            flags = self.engine.check_safety(x.float() / 255.0)
+            x = x.masked_fill(flags[:, None, None, None], 0)
+        if upsample:
+            x = quantise(self.upsampler(x.float() / 255.0))
+        frames = x.cpu().numpy()
+        if flags is not None:
+            flags = flags.cpu().numpy()
+            if flags.any():
+                logger.warning("safety checker flagged %d frame(s); blacked "
+                               "out", int(flags.sum()))
+        return frames, flags
+
+    def _postprocess(self, images, upsample: bool) -> list:
+        """``_postprocess_frames``'s frames as PIL images."""
+        return to_pil(self._postprocess_frames(images, upsample)[0])
+
+    def _ensure_upsampler(self, weights: Optional[str] = None) -> None:
+        """Provision the Real-ESRGAN upsampler before any frame is made.
+        Its weights come from, in this order: ``weights`` (the
+        ``upsample_weights=`` argument), the ``SDV_REALESRGAN`` variable,
+        then an upsampler already assigned to ``pipeline.upsampler``.  A
+        path that does not exist, or no source at all, raises
+        ``FileNotFoundError``, and an assigned upsampler on another device
+        ``ValueError``; a path this pipeline already loaded is not read
+        again.  A path builds an untiled upsampler; for a tiled one assign
+        ``RealESRGANModel.from_pretrained(path, device, tile=...)`` and
+        give neither the argument nor the variable."""
+        weights = weights or os.environ.get("SDV_REALESRGAN")
+        if weights is None:
+            if self.upsampler is not None:
+                if self.upsampler.device != self.models.unet.conv_in \
+                        .weight.device:
+                    raise ValueError(
+                        f"pipeline.upsampler runs on {self.upsampler.device}"
+                        f", the pipeline on {self.device}: build it with "
+                        "the pipeline's device")
+                return
+            raise FileNotFoundError(
+                "upsample=True needs RealESRGAN weights (e.g. "
+                "RealESRGAN_x4plus.pth): pass upsample_weights=, set "
+                "SDV_REALESRGAN, or assign pipeline.upsampler; nothing is "
+                "downloaded")
+        if not Path(weights).exists():
+            raise FileNotFoundError(
+                f"upsample weights not found: {weights!r} (from "
+                "upsample_weights= or SDV_REALESRGAN)")
+        if self._loaded_upsampler is not None and (
+                self._loaded_upsampler[0] == str(weights)
+                and self._loaded_upsampler[1] is self.upsampler):
+            return
+        self.upsampler = RealESRGANModel.from_pretrained(weights,
+                                                         self.device)
+        self._loaded_upsampler = (str(weights), self.upsampler)
+
+    def _upsampler_source(self) -> Optional[str]:
+        """The weights path of the current upsampler, if this pipeline
+        loaded it."""
+        loaded = self._loaded_upsampler
+        return loaded[0] if loaded and loaded[1] is self.upsampler else None
 
     # ------------------------------------------------------------------
     # frame generation
@@ -337,8 +459,12 @@ class StableDiffusionWalkPipeline:
                          step: Optional[tuple] = None, frame_sink=None,
                          noise_key: Optional[int] = None,
                          control_image=None, controlnet_scale=1.0,
-                         ip_image=None, ip_scale: float = 1.0, **unported):
-        """Generate and save the frames of one prompt-pair clip.
+                         ip_image=None, ip_scale: float = 1.0,
+                         upsample: bool = False,
+                         upsample_weights: Optional[str] = None):
+        """Generate and save the frames of one prompt-pair clip, safety
+        checked under ``safety`` and upsampled with ``upsample``
+        (``_ensure_upsampler`` reads ``upsample_weights``).
 
         ``noise_key``: the seed of every dispatch's transition-noise
         generator (``walk()`` passes one video-level seed under
@@ -354,9 +480,10 @@ class StableDiffusionWalkPipeline:
         or a list of either for several nets, at ``controlnet_scale``.
         ``ip_image`` (a pipeline with ``ip_adapter=``): the image prompt of
         every frame, at ``ip_scale``."""
-        refuse_unported("make_clip_frames", _FRAMES_UNPORTED, unported)
         if image_file_ext != ".png":
             raise ValueError("the PyTorch package writes .png frames only")
+        if upsample:
+            self._ensure_upsampler(upsample_weights)
         height = height or self.models.default_size
         width = width or self.models.default_size
         control = None
@@ -393,8 +520,10 @@ class StableDiffusionWalkPipeline:
         save_futures = []
 
         def drain(pool, pending):
+            # enqueued after the next batch: the card runs that batch's
+            # denoise, then this one's post-processing
             imgs_dev, valid, start = pending
-            frames = imgs_dev[:valid].cpu().numpy()
+            frames, _ = self._postprocess_frames(imgs_dev[:valid], upsample)
             for j, frame in enumerate(frames):
                 # PNG encoding on worker threads; the sink is fed in order
                 save_futures.append(pool.submit(
@@ -486,7 +615,8 @@ class StableDiffusionWalkPipeline:
             output_dtype="uint8" if output_type == "pil" else "float32",
             **self._cond_uncond(prompt, negative_prompt, len(arr)),
             **ctrl_kw, **self._ip_kwargs(ip_image, ip_scale))
-        return to_pil(images) if output_type == "pil" else images
+        return (self._postprocess(images, self.upsampler is not None)
+                if output_type == "pil" else images)
 
     def inpaint(self, image, mask, prompt: str,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -506,7 +636,8 @@ class StableDiffusionWalkPipeline:
             generator=torch.Generator(self.device).manual_seed(int(seed)),
             output_dtype="uint8" if output_type == "pil" else "float32",
             **self._cond_uncond(prompt, negative_prompt, B))
-        return to_pil(images) if output_type == "pil" else images
+        return (self._postprocess(images, self.upsampler is not None)
+                if output_type == "pil" else images)
 
     def vid2vid(self, video, prompt: str, *, strength: float = 0.5,
                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -668,7 +799,8 @@ class StableDiffusionWalkPipeline:
                 generator=torch.Generator(self.device).manual_seed(key),
                 noise=batch_noise, output_dtype="uint8", **args, **ctrl_kw,
                 **ip_kw)
-            for img in images:
+            for img in self._postprocess_frames(
+                    images, self.upsampler is not None)[0]:
                 if output_type == "frames":
                     out_frames.append(img)
                     continue
@@ -731,14 +863,20 @@ class StableDiffusionWalkPipeline:
              smooth: float = 0.0, negative_prompt: Optional[str] = None,
              make_video: bool = True, control_image=None,
              controlnet_scale=1.0, ip_image=None, ip_scale: float = 1.0,
-             **unported) -> str:
+             upsample: bool = False, upsample_weights: Optional[str] = None,
+             params=None, jit: Optional[bool] = None) -> str:
         """Generate a video walking through prompt/seed pairs.  Returns the
         final video path, or the run directory when ``make_video=False``.
         ``control_image``/``controlnet_scale`` and ``ip_image``/``ip_scale``
         condition every clip as ``make_clip_frames`` describes; a control
         image given as a path (or list of paths) is recorded in
-        ``prompt_config.json``, so a resume picks it up."""
-        refuse_unported("walk", _WALK_UNPORTED, unported)
+        ``prompt_config.json``, so a resume picks it up.  ``upsample``:
+        Real-ESRGAN on every frame, its weights provisioned before the run
+        directory is made (``_ensure_upsampler``) and recorded for a
+        resume.  ``params``/``jit`` (the JAX pipeline's) are ignored."""
+        if params is not None or jit is not None:
+            logger.info("walk(params=..., jit=...) are managed by the engine "
+                        "in this framework; arguments ignored")
         height = height or self.models.default_size
         width = width or self.models.default_size
         if batch_size is None:
@@ -758,6 +896,9 @@ class StableDiffusionWalkPipeline:
                 raise ValueError("#prompts must equal #seeds")
             if len(prompts) < 2:
                 raise ValueError("need at least 2 prompts to walk between")
+        # fail before the run directory exists
+        if upsample:
+            self._ensure_upsampler(upsample_weights)
         if control_image is not None and self.engine.controlnet is None:
             raise ValueError("control_image= requires a pipeline built with "
                              "controlnet=")
@@ -770,10 +911,10 @@ class StableDiffusionWalkPipeline:
                     f"resume=True but {config_path} does not exist; provide "
                     "the `name` of a previous run")
             data = json.loads(config_path.read_text())
-            if data.get("upsample"):
-                raise NotImplementedError(
-                    "this run used upsampling, which the PyTorch package "
-                    "does not have yet")
+            upsample = data["upsample"]
+            if upsample:
+                self._ensure_upsampler(upsample_weights
+                                       or data.get("upsample_weights"))
             prompts, seeds = data["prompts"], data["seeds"]
             num_interpolation_steps = data["num_interpolation_steps"]
             fps = data["fps"]
@@ -802,8 +943,10 @@ class StableDiffusionWalkPipeline:
                 prompts=prompts, seeds=seeds,
                 num_interpolation_steps=num_interpolation_steps, fps=fps,
                 num_inference_steps=num_inference_steps,
-                guidance_scale=guidance_scale, eta=eta, upsample=False,
-                upsample_weights=None, height=height, width=width,
+                guidance_scale=guidance_scale, eta=eta, upsample=upsample,
+                upsample_weights=(self._upsampler_source() if upsample
+                                  else None),
+                height=height, width=width,
                 audio_filepath=audio_filepath,
                 audio_start_sec=audio_start_sec, margin=margin,
                 smooth=smooth, negative_prompt=negative_prompt,
@@ -889,7 +1032,9 @@ class StableDiffusionWalkPipeline:
                         noise_key=walk_noise_key,
                         control_image=control_image,
                         controlnet_scale=controlnet_scale,
-                        ip_image=ip_image, ip_scale=ip_scale)
+                        ip_image=ip_image, ip_scale=ip_scale,
+                        upsample=upsample,
+                        upsample_weights=self._upsampler_source())
                     if frame_sink is not None:
                         frame_sink.close()
                 except BaseException:
@@ -915,3 +1060,63 @@ class StableDiffusionWalkPipeline:
                 audio_duration=sum(num_interpolation_steps) / fps,
                 glob_pattern="**/frame*.png")
         return str(save_path_root)
+
+    # ------------------------------------------------------------------
+    # one txt2img dispatch
+    # ------------------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        """``generate``."""
+        return self.generate(*args, **kwargs)
+
+    def generate(self, prompt: Optional[Union[str, List[str]]] = None,
+                 height: Optional[int] = None, width: Optional[int] = None,
+                 num_inference_steps: int = 50, guidance_scale: float = 7.5,
+                 eta: float = 0.0, latents=None, text_embeddings=None,
+                 negative_prompt: Optional[str] = None,
+                 seed: Optional[int] = None, output_type: str = "pil",
+                 return_dict: bool = False, pooled_embeddings=None):
+        """txt2img of ``prompt`` (one or a list) or of precomputed
+        ``text_embeddings`` (B, 77, D), from ``latents`` (B, h, w, 4) or
+        noise of seeds ``seed``, ``seed + 1``, ...; an SDXL bundle also
+        takes ``pooled_embeddings`` beside precomputed embeddings.  ->
+        post-processed PIL images; float32 (B, H, W, 3) frames for another
+        ``output_type``; with ``return_dict`` {"images": PIL images,
+        "nsfw_content_detected": one bool a frame}, the flags those that
+        blacked the frames out (computed once, on the quantised
+        frames)."""
+        height = height or self.models.default_size
+        width = width or self.models.default_size
+        if text_embeddings is None:
+            if prompt is None:
+                raise ValueError("provide `prompt` or `text_embeddings`")
+            prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+            text_embeddings = self.engine.embed_text(prompts)
+            if self.models.is_xl and pooled_embeddings is None:
+                pooled_embeddings = self.engine.embed_text_pooled(prompts)
+        if self.models.is_xl and pooled_embeddings is None:
+            raise ValueError("SDXL bundle: precomputed text_embeddings also "
+                             "need pooled_embeddings")
+        batch = text_embeddings.shape[0]
+        if latents is None:
+            shape = self._latent_shape(height, width)
+            latents = torch.cat([self.init_noise((seed or 0) + i, shape)
+                                 for i in range(batch)])
+        neg = negative_prompt or ""
+        xl_kw = (dict(pooled=pooled_embeddings,
+                      uncond_pooled=self.engine.embed_text_pooled(neg))
+                 if self.models.is_xl else {})
+        imgs, valid = self.engine.denoise_frames_async(
+            text_embeddings, self.engine.embed_text(neg), latents,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, eta=eta, **xl_kw)
+        images = imgs[:valid]
+        if return_dict:
+            frames, flags = self._postprocess_frames(
+                images, self.upsampler is not None)
+            if flags is None:
+                flags = np.zeros(len(frames), bool)
+            return {"images": to_pil(frames),
+                    "nsfw_content_detected": flags.tolist()}
+        if output_type == "pil":
+            return self._postprocess(images, self.upsampler is not None)
+        return images.cpu().numpy()

@@ -33,6 +33,9 @@ of a zero embedding, ``ip_scale`` 0 when a dispatch has no image) and
 weighted prompts (``embed_text_weighted``: emphasis syntax and 77·n-token
 contexts).
 
+``check_safety``: the bundle's NSFW safety checker on frames in [0, 1], on
+the engine's device, in the bundle's dtype.
+
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
 """
@@ -50,6 +53,7 @@ from ..core.prompt_weighting import apply_token_weights, encode_weighted
 from ..core.schedulers import get_scheduler
 from ..core.schedulers.base import transition_noise
 from ..models.bundle import SDModels
+from ..models.safety import preprocess_for_safety
 
 #: JAX Engine options this port does not have yet
 UNPORTED = ("mesh", "spatial_shard", "debug")
@@ -888,6 +892,20 @@ class Engine:
         uint8 with ``output_dtype="uint8"``)."""
         imgs, valid = self.denoise_frames_async(cond, uncond, noise, **kw)
         return imgs[:valid].cpu().numpy()
+
+    @torch.no_grad()
+    def check_safety(self, images) -> torch.Tensor:
+        """(B, H, W, 3) frames in [0, 1] (array or tensor) -> (B,) bool
+        flags on the device, from the bundle's safety checker (all False
+        when it has none); the caller blacks the flagged frames out.
+        Nothing here waits for the device."""
+        images = self._to_device(images)
+        checker = self.models.safety_checker()
+        if checker is None:
+            return torch.zeros(images.shape[0], dtype=torch.bool,
+                               device=self.device)
+        return checker(preprocess_for_safety(
+            images, checker.config.vision.image_size))
 
     @torch.no_grad()
     def decode_latents(self, latents) -> np.ndarray:

@@ -113,19 +113,26 @@ def test_walk_with_video_and_audio(tmp_path):
 
 
 @pytest.mark.parametrize("where,kw", [
-    ("walk", dict(upsample=True)), ("walk", dict(upsample_weights="x.pth")),
-    ("pipeline", dict(safety=True)), ("pipeline", dict(tome=0.5)),
-    ("engine", dict(spatial_shard=True)), ("engine", dict(debug=True))])
+    ("pipeline", dict(mesh=object())), ("engine", dict(mesh=object())),
+    ("engine", dict(spatial_shard=True)), ("engine", dict(debug=True)),
+    ("generate_images", dict(push_to_hub=True, repo_id="me/x"))])
 def test_unported_options_raise(where, kw, tmp_path):
+    """What the port still refuses: the mesh (one card), spatial sharding,
+    the debug program and the hub upload."""
+    from stable_diffusion_videos_tpu_torch.pipeline.image_generation import \
+        generate_images
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
     with pytest.raises(NotImplementedError):
-        if where == "walk":
-            StableDiffusionWalkPipeline.tiny(CPU).walk(
-                output_dir=str(tmp_path), **WALK, **kw)
-        elif where == "pipeline":
+        if where == "pipeline":
             StableDiffusionWalkPipeline.tiny(CPU, **kw)
-        else:
+        elif where == "engine":
             Engine(SDModels.tiny(), CPU, **kw)
+        else:
+            generate_images(StableDiffusionWalkPipeline.tiny(CPU), "a",
+                            output_dir=str(tmp_path), **kw)
+    with pytest.raises(TypeError, match="unexpected"):
+        StableDiffusionWalkPipeline.tiny(CPU).walk(
+            output_dir=str(tmp_path), **WALK, upsample_model="x.pth")
 
 
 def test_port_never_imports_jax(tmp_path):
@@ -133,10 +140,11 @@ def test_port_never_imports_jax(tmp_path):
     with lcm under ``frozen_noise``, a tiny SDXL-shaped walk under ``fast``,
     decodes through the tiny decoder and in tiles, an img2img, an inpaint,
     a vid2vid of the first walk's video, a tiny refiner's img2img, a TAESD
-    encode, and a walk with a ControlNet, an IP-Adapter and prompt
-    weighting on a bundle with a LoRA and a textual-inversion file merged
-    import neither jax nor the JAX package, not even its host-only
-    modules."""
+    encode, a walk with a ControlNet, an IP-Adapter and prompt
+    weighting on a bundle with a LoRA and a textual-inversion file merged,
+    a walk with the safety checker, Real-ESRGAN upsampling, ToMe and FreeU,
+    and ``generate_images`` import neither jax nor the JAX package, not
+    even its host-only modules."""
     from safetensors.numpy import save_file
     wav = click_track(tmp_path / "beat.wav")
     rng = np.random.default_rng(0)
@@ -150,6 +158,7 @@ def test_port_never_imports_jax(tmp_path):
               str(tmp_path / "mytrigger.safetensors"))
     code = (
         "import sys, torch\n"
+        "torch.set_num_threads(2)\n"
         "from stable_diffusion_videos_tpu_torch.pipeline import "
         "StableDiffusionWalkPipeline as P\n"
         "P.tiny(torch.device('cpu')).walk(prompts=['a', 'b'], seeds=[1, 2], "
@@ -208,6 +217,20 @@ def test_port_never_imports_jax(tmp_path):
         "=2, height=32, width=32, num_inference_steps=2, batch_size=2, "
         f"make_video=False, output_dir={str(tmp_path)!r}, name='c', "
         "control_image=img[0], ip_image=img[1])\n"
+        "from stable_diffusion_videos_tpu_torch.pipeline import "
+        "image_generation, upsampling\n"
+        "up = upsampling.RealESRGANModel.tiny(torch.device('cpu'))\n"
+        "torch.save({'params_ema': up.net.state_dict()}, "
+        f"{str(tmp_path / 'esrgan.pth')!r})\n"
+        "s = P(SDModels.tiny(with_safety=True), torch.device('cpu'), "
+        "tome=0.5, freeu=True)\n"
+        "s.walk(prompts=['a', 'b'], seeds=[1, 2], num_interpolation_steps=2, "
+        "height=32, width=32, num_inference_steps=2, batch_size=2, "
+        f"make_video=False, output_dir={str(tmp_path)!r}, name='s', "
+        f"upsample=True, upsample_weights={str(tmp_path / 'esrgan.pth')!r})\n"
+        "assert len(image_generation.generate_images(s, 'a', batch_size=2, "
+        "num_inference_steps=2, height=32, width=32, upsample=True, "
+        f"output_dir={str(tmp_path)!r}, name='g')) == 2\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
@@ -219,6 +242,9 @@ def test_port_never_imports_jax(tmp_path):
     assert len(list(tmp_path.glob("l/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("x/**/frame*.png"))) == 2
     assert len(list(tmp_path.glob("c/**/frame*.png"))) == 2
+    upsampled = sorted(tmp_path.glob("s/**/frame*.png"))
+    assert [Image.open(p).size for p in upsampled] == [(128, 128)] * 2
+    assert len(list(tmp_path.glob("g/*.jpg"))) == 2
     videos = [p for p in (tmp_path / "n").glob("n.*")
               if p.suffix in (".mp4", ".avi")]
     assert len(videos) == 1 and videos[0].stat().st_size > 0
