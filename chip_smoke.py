@@ -107,7 +107,28 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    walk (safety, upsample, ToMe 0.5, FreeU, 2 prompts x 16 frames, the mp4
    at 2048²) and its resume after the last 8 PNGs go.  Each run's launches
    by shape, every one of which phase 3 checks (ToMe's level 0 at Sq = Sk
-   = 2048, bf16).
+   = 2048, bf16);
+12. serve: the serving path on phase 5's bundle at 512², pndm-50, CFG 7.5:
+   the bundle written as a diffusers directory (safetensors, each
+   config.json at runwayml/stable-diffusion-v1-5's keys with the port's
+   config values, a synthetic vocabulary) and loaded back with
+   ``StableDiffusionWalkPipeline.from_pretrained`` (seconds; every
+   parameter and an 8-frame dispatch's frames bit-equal); the HTTP server
+   on that pipeline over real sockets: /health, /warmup of batches 1 and 16
+   (seconds), one /generate (least of 3 warm; its PNG equal to
+   ``generate()``'s), 16 concurrent /generate from 16 threads (wall time,
+   images/s, the batcher's dispatches) beside 4 sequential ones, a /walk job
+   of 8 frames (frames/s beside phase 5's, its progress and its video under
+   the output root), /generate during a /walk equal to it served alone,
+   DELETE of the walk (seconds to "cancelled", no container left),
+   /img2img (equal to ``img2img()``) and /inpaint of a 512² PNG, /generate
+   beside /warmup of dpm (the pndm image); a 16-request /generate under a
+   memory cap between the batch-8 and batch-16 peaks, split in two and
+   within 2/255 of the uncapped images; then ``python3 -m
+   stable_diffusion_videos_tpu_torch serve --checkpoint DIR`` as a process,
+   its image equal to the in-process server's.  Each counted run's launches
+   by shape, every one of which phase 3 checks (the rows at UNet batch 2
+   and VAE batch 1, bf16).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record and ``{"ok": true, "device": {...}}``.
@@ -132,7 +153,7 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled", "families", "edit", "addons", "post")
+          "distilled", "families", "edit", "addons", "post", "serve")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -302,6 +323,19 @@ ADDON_ATTN_SHAPES = new_rows(
     [(16, sq, sk, 8, d) for sk in (IP_TOKENS, WEIGHTED_KEYS)
      for sq, d in UNET_LEVELS],
     ATTN_SHAPES, FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES)
+# Phase 12's serving path at 512²: a request of one prompt runs the UNet at
+# CFG batch 2 and the decoder at batch 1, and /img2img and /inpaint the
+# encoder at batch 1 too (a merged batch of 16, the walk and the split's
+# halves run the walks' keys)
+SERVE_ATTN_SHAPES = new_rows(
+    [(2, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+    + [(1, 4096, 4096, 1, 512)],
+    ATTN_SHAPES, FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES, ADDON_ATTN_SHAPES)
+SERVE_GN_SHAPES = new_rows(
+    [((b, c, h, w), eps, silu)
+     for b, table in ((2, UNET_GN), (1, VAE_GN), (1, VAE_ENC_GN))
+     for c, h, w, eps, silu in table],
+    GN_SHAPES, FAMILY_GN_SHAPES, EDIT_GN_SHAPES)
 # the LoRA merge against its delta: the merged bf16 weight is the fp32 sum
 # W + delta rounded once, within half an ulp (2^-8 relative) of it, plus the
 # fp32 sums' own rounding (the check's delta is a matmul, the merge's an
@@ -539,7 +573,8 @@ def phase_kernels(torch):
             ("families", FAMILY_ATTN_SHAPES, FAMILY_GN_SHAPES),
             ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES),
             ("addons", ADDON_ATTN_SHAPES, []),
-            ("post", POST_ATTN_SHAPES, []))}
+            ("post", POST_ATTN_SHAPES, []),
+            ("serve", SERVE_ATTN_SHAPES, SERVE_GN_SHAPES))}
 
     def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
@@ -568,6 +603,7 @@ def phase_kernels(torch):
         # dtype only
         shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
                                 + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
+                                + SERVE_ATTN_SHAPES
                                 if dt == torch.bfloat16 else [])
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
@@ -624,6 +660,7 @@ def phase_kernels(torch):
         for shape, eps, silu, w_dt in (
                 [(*c, dt) for c in GN_SHAPES]
                 + [(*c, dt) for c in (FAMILY_GN_SHAPES + EDIT_GN_SHAPES
+                                      + SERVE_GN_SHAPES
                                       if dt == torch.bfloat16 else [])]
                 + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
@@ -779,9 +816,10 @@ def counted_run(torch, label: str, run):
         raise AssertionError(f"{label} did not run on the kernels alone")
     bf16 = torch.bfloat16
     checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES
-                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES}
+                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
+                + SERVE_ATTN_SHAPES}
                | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES
-                  + EDIT_GN_SHAPES})
+                  + EDIT_GN_SHAPES + SERVE_GN_SHAPES})
     unchecked = [k for counts in by_shape.values() for k in counts
                  if k not in checked]
     if unchecked:
@@ -856,7 +894,7 @@ def phase_main(torch, models):
             output_dtype="float32")))
     print(f"main: {16 / walk_s:.4f} frames/s (walk wall time, first call "
           f"included) on {gpu_line()}")
-    return launches, frames
+    return launches, frames, 16 / walk_s
 
 
 def warm_seconds(torch, dispatch, runs: int = 3,
@@ -1344,19 +1382,30 @@ def phase_edit(torch, models, frames, xl_parts):
 
 
 def write_safetensors(path: Path, tensors: dict):
-    """float32 arrays -> a ``.safetensors`` file (8-byte little-endian
-    header length, JSON header, raw little-endian data): the card's machine
-    has no safetensors package, and the port reads the format itself."""
+    """float32 arrays, or bf16 torch tensors, -> a ``.safetensors`` file
+    (8-byte little-endian header length, JSON header, raw little-endian
+    data, one tensor after another): the card's machine has no safetensors
+    package, and the port reads the format itself."""
     header, blobs, offset = {}, [], 0
     for name, value in tensors.items():
-        blob = np.ascontiguousarray(value, "<f4").tobytes()
-        header[name] = {"dtype": "F32", "shape": list(value.shape),
+        if str(getattr(value, "dtype", "")) == "torch.bfloat16":
+            import torch
+            kind = "BF16"  # the raw 16-bit patterns
+            blob = value.detach().cpu().contiguous().view(torch.int16) \
+                .numpy().tobytes()
+        else:
+            kind = "F32"
+            blob = np.ascontiguousarray(value, "<f4").tobytes()
+        header[name] = {"dtype": kind, "shape": list(value.shape),
                         "data_offsets": [offset, offset + len(blob)]}
         blobs.append(blob)
         offset += len(blob)
     head = json.dumps(header).encode()
     head += b" " * (-len(head) % 8)
-    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for blob in blobs:
+            f.write(blob)
 
 
 def edge_map(side: int = 512) -> np.ndarray:
@@ -2026,6 +2075,507 @@ def phase_post(torch, models, frames):
     return out
 
 
+def clip_vocab() -> dict:
+    """A vocabulary of CLIP's first 512 entries (the 256 byte symbols, then
+    each with ``</w>``) and its two specials at their ids: every prompt
+    tokenizes, one symbol a byte, with no merges."""
+    from stable_diffusion_videos_tpu_torch.models.tokenizer import \
+        _bytes_to_unicode
+    chars = list(_bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": 256 + i for i, c in enumerate(chars)})
+    vocab.update({"<|startoftext|>": 49406, "<|endoftext|>": 49407})
+    return vocab
+
+
+def write_checkpoint(models, root: Path) -> Path:
+    """The bundle as a diffusers-layout directory: each model's tensors as
+    safetensors and its ``config.json`` at runwayml/stable-diffusion-v1-5's
+    keys, the values read from the port's configs; the PNDM scheduler's
+    config; a synthetic vocabulary."""
+    shutil.rmtree(root, ignore_errors=True)
+    u, v, t = models.unet_config, models.vae_config, models.text_config
+    levels = len(u.block_out_channels)
+    parts = {
+        "unet": (models.unet, "diffusion_pytorch_model", {
+            "_class_name": "UNet2DConditionModel", "act_fn": "silu",
+            "attention_head_dim": u.attention_head_dim,
+            "block_out_channels": list(u.block_out_channels),
+            "center_input_sample": False,
+            "cross_attention_dim": u.cross_attention_dim,
+            "down_block_types": ["CrossAttnDownBlock2D" if a
+                                 else "DownBlock2D" for a in u.attn_levels],
+            "downsample_padding": 1, "flip_sin_to_cos": u.flip_sin_to_cos,
+            "freq_shift": u.freq_shift, "in_channels": u.in_channels,
+            "layers_per_block": u.layers_per_block,
+            "mid_block_scale_factor": 1, "norm_eps": 1e-05,
+            "norm_num_groups": 32, "out_channels": u.out_channels,
+            "sample_size": u.sample_size,
+            "up_block_types": ["CrossAttnUpBlock2D" if a else "UpBlock2D"
+                               for a in reversed(u.attn_levels)]}),
+        "vae": (models.vae, "diffusion_pytorch_model", {
+            "_class_name": "AutoencoderKL", "act_fn": "silu",
+            "block_out_channels": list(v.block_out_channels),
+            "down_block_types": ["DownEncoderBlock2D"] * levels,
+            "in_channels": v.in_channels,
+            "latent_channels": v.latent_channels,
+            "layers_per_block": v.layers_per_block, "norm_num_groups": 32,
+            "out_channels": v.out_channels,
+            "sample_size": u.sample_size * v.scale_factor,
+            "scaling_factor": v.scaling_factor,
+            "up_block_types": ["UpDecoderBlock2D"] * levels}),
+        "text_encoder": (models.text_encoder, "model", {
+            "architectures": ["CLIPTextModel"],
+            "hidden_act": t.hidden_act, "hidden_size": t.hidden_size,
+            "intermediate_size": t.intermediate_size,
+            "layer_norm_eps": t.layer_norm_eps,
+            "max_position_embeddings": t.max_position_embeddings,
+            "model_type": "clip_text_model",
+            "num_attention_heads": t.num_heads,
+            "num_hidden_layers": t.num_layers, "projection_dim": 768,
+            "vocab_size": t.vocab_size}),
+    }
+    for sub, (module, stem, config) in parts.items():
+        (root / sub).mkdir(parents=True)
+        (root / sub / "config.json").write_text(json.dumps(config))
+        write_safetensors(root / sub / f"{stem}.safetensors",
+                          module.state_dict())
+    (root / "scheduler").mkdir()
+    (root / "scheduler" / "scheduler_config.json").write_text(json.dumps({
+        "_class_name": "PNDMScheduler", "beta_end": 0.012,
+        "beta_schedule": "scaled_linear", "beta_start": 0.00085,
+        "clip_sample": False, "num_train_timesteps": 1000,
+        "set_alpha_to_one": False, "skip_prk_steps": True,
+        "steps_offset": 1, "trained_betas": None}))
+    (root / "tokenizer").mkdir()
+    (root / "tokenizer" / "vocab.json").write_text(json.dumps(clip_vocab()))
+    (root / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+    return root
+
+
+def http(port: int, method: str, path: str, body=None, timeout=600):
+    """One JSON request to the server on this host -> (status, reply)."""
+    from http.client import HTTPConnection
+    conn = HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path,
+                 body=None if body is None else json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def served(port: int, path: str, body: dict) -> list:
+    """POST ``body`` and demand a 200; -> the reply's images, uint8."""
+    import base64
+    import io
+
+    from PIL import Image
+    status, reply = http(port, "POST", path, body)
+    if status != 200:
+        raise AssertionError(f"{path} {body.get('prompt')!r}: {status} "
+                             f"{reply}")
+    return [np.asarray(Image.open(io.BytesIO(base64.b64decode(b))))
+            for b in reply["images"]]
+
+
+def png_b64(frame: np.ndarray) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def job_until(port: int, job_id: str, done=("done", "error", "cancelled"),
+              seconds: float = 300.0, pred=None) -> tuple[dict, list]:
+    """Poll /jobs/<id> until its status is in ``done`` (or ``pred(job)``);
+    -> (the job, the frames_done values seen)."""
+    seen, deadline = [], time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        _, job = http(port, "GET", f"/jobs/{job_id}")
+        seen.append(job.get("progress", {}).get("frames_done", 0))
+        if job["status"] in done or (pred is not None and pred(job)):
+            return job, seen
+        time.sleep(0.02)
+    raise AssertionError(f"job {job_id} still {job['status']} after "
+                         f"{seconds} s")
+
+
+class BatchLog:
+    """The batcher's and engine's log lines: merged dispatch sizes, and
+    out-of-memory splits."""
+
+    def __init__(self):
+        import logging
+        self.sizes, self.splits = [], []
+        log = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                msg = record.getMessage()
+                if msg.startswith("dynamic batch:"):
+                    log.sizes.append(int(msg.split()[2]))
+                elif msg.startswith("out of device memory"):
+                    log.splits.append(msg)
+
+        self.handler = Handler()
+        logger = logging.getLogger("sdv_torch")
+        logger.setLevel(logging.INFO)
+        logger.addHandler(self.handler)
+
+    def take(self) -> tuple[list, list]:
+        out = (self.sizes, self.splits)
+        self.sizes, self.splits = [], []
+        return out
+
+
+def phase_serve(torch, models, frames, main_fps):
+    """The serving path on phase 5's bundle: a diffusers directory written
+    and loaded back bit for bit, the HTTP server with dynamic batching over
+    real sockets, a forced out-of-memory split, and the command line's
+    ``serve`` as a process; -> {run: {kernel: launches}}."""
+    import os
+    import threading
+
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.server import Server
+    dev, line, out = torch.device("cuda"), gpu_line(), {}
+    prompt, seed = "a lighthouse on a cliff at dusk", 11
+    req = {"prompt": prompt, "seed": seed}
+    root = write_checkpoint(models, WORK / "serve_checkpoint")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = StableDiffusionWalkPipeline.from_pretrained(
+        root, device="cuda", dtype=models.dtype, safety=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"serve: from_pretrained of the SD 1.5-layout directory "
+          f"({sum(f.stat().st_size for f in root.rglob('*')) / 1e9:.2f} GB "
+          f"bf16) {load_s:.2f} s on {line}")
+    for part in ("unet", "vae", "text_encoder"):
+        want = getattr(models, part).state_dict()
+        got = getattr(pipe.models, part).state_dict()
+        if sorted(got) != sorted(want) or not all(
+                torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"serve: the loaded {part} differs")
+    ref = StableDiffusionWalkPipeline(models, dev, safety=False)
+    cond, uncond, noise = dispatch_inputs(torch, ref)
+    run = dict(num_inference_steps=50, guidance_scale=7.5,
+               output_dtype="uint8")
+    a = ref.engine.denoise_frames(cond, uncond, noise, **run)
+    b = pipe.engine.denoise_frames(cond, uncond, noise, **run)
+    if not np.array_equal(a, b):
+        raise AssertionError("serve: the loaded pipeline's frames differ")
+    print("serve: parameters and an 8-frame pndm-50 dispatch's frames "
+          "bit-equal to the bundle's")
+    del ref
+
+    log = BatchLog()
+    server_root = WORK / "serve_root"
+    shutil.rmtree(server_root, ignore_errors=True)
+    server = Server(pipe, output_root=str(server_root))
+    _, port = server.start(port=0)
+    try:
+        def health():
+            status, h = http(port, "GET", "/health")
+            if status != 200 or h["backend"] != "cuda":
+                raise AssertionError(f"/health: {status} {h}")
+            return h
+
+        warm = {}
+
+        def warm_up():
+            status, warm["reply"] = http(port, "POST", "/warmup",
+                                         {"batches": [1, 16]})
+            warm["status"] = status
+
+        out["warmup"], warm_s = counted_run(torch, "serve warmup", warm_up)
+        if warm["status"] != 200:
+            raise AssertionError(f"/warmup: {warm}")
+        print(f"serve: /health {health()}; /warmup {{batches: [1, 16]}} "
+              f"{warm_s:.2f} s ({warm['reply']}) on {line}")
+
+        single = {}
+
+        def one_request():
+            single["image"] = served(port, "/generate", req)[0]
+        out["generate"], _ = counted_run(torch, "serve generate",
+                                         one_request)
+        alone = single["image"]
+        lat, times = warm_seconds(torch, one_request, runs=3, warmed=True)
+        direct = np.asarray(pipe.generate(prompt, seed=seed)[0])
+        if not np.array_equal(alone, direct):
+            raise AssertionError("serve: /generate differs from generate()")
+        print(f"serve: one /generate (UNet at CFG batch 2, pndm-50) least of "
+              f"3 warm {lat:.4f} s ({times}); its PNG equals generate()'s; "
+              f"on {line}")
+
+        log.take()
+        # the window closes when 16 requests are in: room for all 16
+        # clients to connect
+        server.batcher.max_delay = 1.0
+        results = [None] * 16
+
+        def client(i):
+            results[i] = served(port, "/generate",
+                                {"prompt": prompt, "seed": 100 + i})[0]
+
+        def sixteen():
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(16)]
+            [t.start() for t in threads]
+            [t.join() for t in threads]
+        out["sixteen clients"], wall = counted_run(
+            torch, "serve 16 concurrent /generate", sixteen)
+        server.batcher.max_delay = 0.025
+        sizes, _ = log.take()
+        if any(r is None for r in results) or sum(sizes) != 16:
+            raise AssertionError(f"serve: 16 clients, dispatches {sizes}")
+        seq = []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            served(port, "/generate", {"prompt": prompt, "seed": 200 + i})
+            seq.append(time.perf_counter() - t0)
+        print(f"serve: 16 concurrent /generate from 16 threads {wall:.4f} s, "
+              f"{16 / wall:.4f} images/s, in {len(sizes)} dispatch(es) of "
+              f"{sizes}; 4 sequential single requests mean "
+              f"{np.mean(seq):.4f} s ({['%.4f' % t for t in seq]}), "
+              f"{1 / np.mean(seq):.4f} images/s; on {line}")
+
+        walk = {"prompts": ["a red fox in the snow", "a lighthouse at dusk"],
+                "seeds": [42, 1337], "num_interpolation_steps": 8,
+                "batch_size": 8, "name": "served", "output_dir": "walks"}
+        job = {}
+
+        def served_walk():
+            status, reply = http(port, "POST", "/walk", walk)
+            if status != 202:
+                raise AssertionError(f"/walk: {status} {reply}")
+            job["job"], job["seen"] = job_until(port, reply["job_id"])
+        out["walk"], walk_s = counted_run(torch, "serve walk", served_walk)
+        done, seen = job["job"], job["seen"]
+        video = Path(done.get("result", {}).get("video", ""))
+        if (done["status"] != "done" or seen[-1] != 8
+                or done["progress"]["frames_total"] != 8
+                or server_root.resolve() not in video.resolve().parents
+                or not video.is_file()):
+            raise AssertionError(f"serve: /walk job {done}")
+        main = ("not run" if main_fps is None
+                else f"{main_fps:.4f} frames/s")
+        print(f"serve: /walk job 2 prompts x 8 frames, batch 8: "
+              f"{walk_s:.4f} s, {8 / walk_s:.4f} frames/s (phase 5's walk "
+              f"{main}); progress seen "
+              f"{sorted(set(seen))}; {video.name} under the output root; "
+              f"perf {done['result']['perf']['stages_s']}; on {line}")
+
+        long_walk = {**walk, "num_interpolation_steps": 40,
+                     "name": "cancelled"}
+        status, reply = http(port, "POST", "/walk", long_walk)
+        job_id = reply["job_id"]
+        job_until(port, job_id, pred=lambda j: j.get("progress", {}).get(
+            "frames_done", 0) >= 8)
+        during = served(port, "/generate", req)[0]
+        if not np.array_equal(during, alone):
+            raise AssertionError("serve: /generate during a /walk differs "
+                                 "from the same request served alone")
+        t0 = time.perf_counter()
+        status, _ = http(port, "DELETE", f"/jobs/{job_id}")
+        cancelled, seen = job_until(port, job_id)
+        cancel_s = time.perf_counter() - t0
+        run_dir = server_root / "walks" / "cancelled"
+        left = [p.name for p in run_dir.rglob("*")
+                if p.suffix in (".mp4", ".avi")]
+        if status != 202 or cancelled["status"] != "cancelled" or left:
+            raise AssertionError(f"serve: cancel {status} {cancelled} "
+                                 f"{left}")
+        # the job stops at its next frame batch: within one dispatch (the
+        # 8-frame job's time) and its drain
+        if cancel_s > 1.5 * walk_s:
+            raise AssertionError(f"serve: cancelled after {cancel_s:.2f} s")
+        print(f"serve: /generate during a /walk equals it served alone; "
+              f"DELETE to 'cancelled' {cancel_s:.4f} s at "
+              f"{cancelled['progress']['frames_done']}/40 frames, no "
+              f"container left; on {line}")
+
+        src = (frames[0] if frames is not None
+               else synthetic_frames(1)[0])
+        mask = np.zeros(src.shape[:2], np.uint8)
+        mask[:, :src.shape[1] // 2] = 255
+        edit = {}
+
+        def edits():
+            edit["img2img"] = served(port, "/img2img", {
+                "image": png_b64(src), "prompt": prompt, "seed": 3})[0]
+            edit["inpaint"] = served(port, "/inpaint", {
+                "image": png_b64(src), "mask": png_b64(mask),
+                "prompt": prompt, "seed": 3})[0]
+        out["img2img+inpaint"], edit_s = counted_run(
+            torch, "serve img2img and inpaint", edits)
+        from PIL import Image
+        want = np.asarray(pipe.img2img(Image.fromarray(src), prompt,
+                                       seed=3)[0])
+        if not np.array_equal(edit["img2img"], want) or any(
+                e.shape != src.shape for e in edit.values()):
+            raise AssertionError("serve: /img2img differs from img2img()")
+        print(f"serve: /img2img (strength 0.75) and /inpaint (left half) of "
+              f"a 512² PNG {edit_s:.4f} s; /img2img equals img2img(); on "
+              f"{line}")
+
+        race = {}
+
+        def dpm_warmup():
+            race["warmup"] = http(port, "POST", "/warmup",
+                                  {"schedulers": ["dpm"]})
+
+        def warmup_race():
+            t = threading.Thread(target=dpm_warmup)
+            t.start()
+            time.sleep(0.2)
+            race["image"] = served(port, "/generate", req)[0]
+            t.join()
+        out["warmup dpm + generate"], _ = counted_run(
+            torch, "serve /warmup dpm beside /generate", warmup_race)
+        if race["warmup"][0] != 200 or not np.array_equal(race["image"],
+                                                          alone):
+            raise AssertionError(f"serve: /generate beside /warmup dpm is "
+                                 f"not the pndm image ({race['warmup']})")
+        if pipe.engine.scheduler_name != "pndm":
+            raise AssertionError("serve: /warmup switched the sampler")
+        print(f"serve: /generate beside /warmup {{schedulers: [dpm]}} "
+              f"({race['warmup'][1]}) is the pndm image")
+
+        # out of memory: a cap under which a batch-16 dispatch fails and its
+        # halves of 8 run.  cuDNN shrinks its workspace under a cap, so the
+        # peaks of uncapped runs do not give it: it is searched between
+        # them with short dispatches (2 steps: the decode at 512² is the
+        # peak), each read from the engine's split log
+        sixteen_req = {"prompts": [prompt] * 16, "seed": 300}
+        uncapped = served(port, "/generate", sixteen_req)
+        eng = pipe.engine
+        peaks = {}
+        for b in (8, 16):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            eng.warmup(num_inference_steps=2, batches=(b,))
+            peaks[b] = torch.cuda.max_memory_reserved()
+        total = torch.cuda.get_device_properties(0).total_memory
+
+        from stable_diffusion_videos_tpu_torch.runtime.engine import \
+            is_out_of_memory
+
+        def probe(cap):
+            """-> the batch sizes that ran out of memory in a batch-16
+            dispatch under ``cap`` bytes."""
+            torch.cuda.empty_cache()
+            log.take()
+            torch.cuda.set_per_process_memory_fraction(cap / total)
+            try:
+                eng.warmup(num_inference_steps=2, batches=(16,))
+            except RuntimeError as e:
+                if not is_out_of_memory(e):
+                    raise
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+                torch.cuda.empty_cache()
+            return [int(m.split()[6]) for m in log.take()[1]]
+
+        lo, hi, cap, probes = peaks[8] * 0.5, peaks[16], None, []
+        for _ in range(10):
+            mid = (lo + hi) / 2
+            failed = probe(mid)
+            probes.append((round(mid / 1e9, 3), failed))
+            if failed == [16]:
+                cap = mid
+                break
+            if failed:
+                lo = mid  # the halves did not fit either
+            else:
+                hi = mid  # batch 16 fitted
+        print(f"serve: peaks of reserved memory batch 8 {peaks[8] / 1e9:.3f} "
+              f"GB, batch 16 {peaks[16] / 1e9:.3f} GB; cap search (GB, the "
+              f"batches that ran out) {probes}")
+        if cap is None:
+            raise AssertionError("serve: no cap splits batch 16 alone")
+        torch.cuda.empty_cache()
+        log.take()
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        try:
+            out["oom split"], split_s = counted_run(
+                torch, "serve /generate of 16 under the cap",
+                lambda: peaks.update(capped=served(port, "/generate",
+                                                   sixteen_req)))
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            torch.cuda.empty_cache()
+        sizes, splits = log.take()
+        diff = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                   for a, b in zip(peaks["capped"], uncapped))
+        if sizes != [16] or not splits or diff > 2:
+            raise AssertionError(f"serve: capped dispatch {sizes} {splits} "
+                                 f"max diff {diff}")
+        print(f"serve: under a cap of {cap / 1e9:.3f} GB the 16-request "
+              f"/generate split "
+              f"({'; '.join(splits)}) in {split_s:.4f} s; images within "
+              f"{diff}/255 of the uncapped run; on {line}")
+    finally:
+        server.shutdown()
+
+    # the command line's serve, as a user starts it
+    port2 = free_port()
+    proc_log = WORK / "serve_process.log"
+    with open(proc_log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "stable_diffusion_videos_tpu_torch",
+             "serve", "--checkpoint", str(root), "--port", str(port2),
+             "--output-root", str(server_root)], cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT, env=dict(os.environ))
+    try:
+        t0 = time.perf_counter()
+        while True:
+            try:
+                status, h = http(port2, "GET", "/health", timeout=5)
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError(f"serve process exited "
+                                         f"{proc.returncode}: "
+                                         f"{proc_log.read_text()[-4000:]}")
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("serve process did not answer")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        image = served(port2, "/generate", req)[0]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    if status != 200 or not np.array_equal(image, alone):
+        raise AssertionError(f"serve process: /health {status} {h}; its "
+                             "image differs from the in-process server's")
+    print(f"serve: `python3 -m stable_diffusion_videos_tpu_torch serve "
+          f"--checkpoint DIR` answered /health after {up_s:.2f} s and "
+          f"served the in-process server's image; stopped (rc "
+          f"{proc.returncode})")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2038,12 +2588,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
-    summary, launches, fewstep, distilled, families, edit, addons, post = \
-        (None,) * 8
-    frames, xl_parts = None, None
+    summary, launches, fewstep, distilled, families, edit, addons, post, \
+        serve = (None,) * 9
+    frames, xl_parts, main_fps = None, None, None
     models = (sd1_bundle(torch)
-              if {"main", "fewstep", "distilled", "edit", "addons", "post"}
-              & set(phases) else None)
+              if {"main", "fewstep", "distilled", "edit", "addons", "post",
+                  "serve"} & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -2055,7 +2605,7 @@ def main():
         elif name == "golden":
             phase_golden(torch)
         elif name == "main":
-            launches, frames = phase_main(torch, models)
+            launches, frames, main_fps = phase_main(torch, models)
         elif name == "fewstep":
             fewstep = phase_fewstep(torch, models)
         elif name == "distilled":
@@ -2067,8 +2617,10 @@ def main():
             xl_parts = None
         elif name == "addons":
             addons = phase_addons(torch, models, frames)
-        else:
+        elif name == "post":
             post = phase_post(torch, models, frames)
+        else:
+            serve = phase_serve(torch, models, frames, main_fps)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -2100,6 +2652,8 @@ def main():
                                 for run, counts in addons.items()}
         k["launches_post"] = {run: counts[wrapper[k["name"]]]
                               for run, counts in post.items()}
+        k["launches_serve"] = {run: counts[wrapper[k["name"]]]
+                               for run, counts in serve.items()}
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

@@ -231,10 +231,6 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int D, int DC, float scale_log2,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<DCPT>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DCPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + BQ - 1) / BQ, B * H, (D + DC - 1) / DC);
   flash_fwd_kernel<DCPT><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -256,6 +252,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 #undef SDV_CASE
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <int DCPT>
+cudaError_t prepare_fp32() {
+  return cudaFuncSetAttribute(flash_fwd_kernel<DCPT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem_bytes<DCPT>());
 }
 
 // ---------------------------------------------------------------------------
@@ -581,15 +584,17 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
 // the runtime's cudaGetDriverEntryPoint, so the library links nothing but
 // the CUDA runtime that nvcc adds (no -lcuda).
 EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
+  // fetched once, by whichever host thread calls first (a thread-safe
+  // static)
+  static const EncodeTiled fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
   return fn;
 }
 
@@ -614,19 +619,35 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The tensor-map encoder is a driver call, and needs a context current on
+// the calling host thread.  A runtime call makes the device's primary
+// context current, but a thread whose first kernel is this one may have made
+// none (PyTorch's allocator serves tensors without a CUDA call), and the
+// encoder then fails with an invalid value: measured on the card, every
+// bf16 attention call of a fresh thread failed until the thread launched
+// another kernel.  So the device of q is made current here first, once a
+// thread and device.
+int bind_device(const void* ptr) {
+  thread_local int bound = -1;
+  cudaPointerAttributes attr;
+  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
+  if (err == cudaSuccess && attr.device != bound) {
+    err = cudaSetDevice(attr.device);
+    if (err == cudaSuccess) bound = attr.device;
+  }
+  return (int)err;
+}
+
 template <class C>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
                  int Sq, int Sk, int H, int D, float scale_log2,
                  cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, B, Sq, H, D, C::BQ);
+  int err = bind_device(q);
+  if (err == 0) err = encode_map(&tq, q, B, Sq, H, D, C::BQ);
   if (err == 0) err = encode_map(&tk, k, B, Sk, H, D, C::BN);
   if (err == 0) err = encode_map(&tv, v, B, Sk, H, D, C::BN);
   if (err != 0) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
-  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
   flash_wgmma_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, D, scale_log2);
@@ -642,6 +663,15 @@ int padded_depth(int D) {
   return 0;
 }
 
+// the instantiations, by depth: three consumers where their registers
+// allow it (measured faster than two), two at D=160 (the accumulators need
+// 240 registers a thread).  D=64: 64 score, 32 output and 32 p registers a
+// thread fit the three consumers' 160, and q (24 KB) with two k/v stages
+// (64 KB) leaves room
+#define SDV_FA_CONFIGS(X)                                            \
+  X(48, 192, 128, 2, 1) X(64, 192, 128, 2, 1) X(80, 192, 128, 2, 1) \
+  X(160, 128, 128, 2, 1) X(512, 64, 64, 1, 2)
+
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int D, float scale_log2,
                    cudaStream_t stream) {
@@ -650,13 +680,7 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
   case DP:                                                                \
     return launch_wgmma<FlashCfg<DP, BQ, BN, NSTAGE, NDWG>>(              \
         q, k, v, o, B, Sq, Sk, H, D, scale_log2, stream);
-    // three consumers where their registers allow it (measured faster than
-    // two), two at D=160 (the accumulators need 240 registers a thread).
-    // D=64: 64 score, 32 output and 32 p registers a thread fit the three
-    // consumers' 160, and q (24 KB) with two k/v stages (64 KB) leaves room
-    SDV_FA(48, 192, 128, 2, 1) SDV_FA(64, 192, 128, 2, 1)
-    SDV_FA(80, 192, 128, 2, 1) SDV_FA(160, 128, 128, 2, 1)
-    SDV_FA(512, 64, 64, 1, 2)
+    SDV_FA_CONFIGS(SDV_FA)
 #undef SDV_FA
   }
   return (int)cudaErrorInvalidValue;
@@ -680,6 +704,31 @@ extern "C" int sdv_flash_attention(const void* q, const void* k,
   if (dtype == sdv::kBFloat16 && D % 8 == 0)
     return dispatch_wgmma(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// What every launch needs once, done when the library is loaded (its loader
+// holds a lock): the kernels' shared-memory attributes and the driver's
+// tensor-map encoder, so that no launch, from whichever host thread, sets
+// them up while another launches.  Returns a cudaError_t value (0 =
+// ready).
+extern "C" int sdv_prepare_attention() {
+  cudaError_t err = encode_tiled() == nullptr
+                        ? cudaErrorSharedObjectSymbolNotFound
+                        : cudaSuccess;
+  const cudaError_t set[] = {
+#define SDV_FA(DP, BQ, BN, NSTAGE, NDWG)                                  \
+  cudaFuncSetAttribute(flash_wgmma_kernel<FlashCfg<DP, BQ, BN, NSTAGE, NDWG>>, \
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,          \
+                       FlashCfg<DP, BQ, BN, NSTAGE, NDWG>::SMEM),
+      SDV_FA_CONFIGS(SDV_FA)
+#undef SDV_FA
+      prepare_fp32<1>(), prepare_fp32<2>(), prepare_fp32<3>(),
+      prepare_fp32<4>(), prepare_fp32<5>(), prepare_fp32<6>(),
+      prepare_fp32<7>(), prepare_fp32<8>(), prepare_fp32<9>(),
+      prepare_fp32<10>()};
+  for (cudaError_t e : set)
+    if (err == cudaSuccess) err = e;
+  return (int)err;
 }
 
 // The depth a bf16 call of head size D runs at (0: not served), so a caller

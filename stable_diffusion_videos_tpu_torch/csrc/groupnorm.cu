@@ -168,9 +168,14 @@ __device__ __forceinline__ float load_weight(const void* w, int c,
                 : static_cast<const float*>(w)[c];
 }
 
-__host__ __device__ int coef_bytes(int cpg) {
+__host__ __device__ constexpr int coef_bytes(int cpg) {
   return (2 * cpg * 4 + 127) & ~127;
 }
+
+// The dynamic shared memory any launch may take: the widest group's
+// coefficients and a streamed slice's kept part (an on-chip slice is at
+// most ONCHIP_MAX / MAX_CLUSTER bytes and one vector, less).
+constexpr int SMEM_CAP = coef_bytes(MAX_CPG) + (int)STREAM_KEEP;
 
 // One cluster per (item, group) at a time; block `rank` of the cluster owns
 // elements [rank·slice, rank·slice + slice) of the group's run and keeps the
@@ -360,14 +365,9 @@ int launch(const void* x, const void* scale, const void* bias, int w_bf16,
   const int cpg = C / G;
   const long long HW = M / cpg;
   const size_t smem = (size_t)coef_bytes(cpg) + (size_t)keep * sizeof(T);
+  if (smem > (size_t)SMEM_CAP) return (int)cudaErrorInvalidValue;
   auto kernel = gn_silu_kernel<T, VEC, NT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess && cs > 8)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-
+  cudaError_t err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;
@@ -438,7 +438,38 @@ int run(const void* x, const void* scale, const void* bias, int w_bf16,
                                     eps, silu, stream);
 }
 
+// the attributes every launch of one kernel takes (sdv_prepare_groupnorm)
+template <typename T, int VEC, int NT>
+cudaError_t prepare() {
+  auto kernel = gn_silu_kernel<T, VEC, NT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+  return err != cudaSuccess ? err : cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
 }  // namespace
+
+// The kernels' attributes, set once when the library is loaded (its loader
+// holds a lock) to values every launch takes: the largest dynamic shared
+// memory a launch may use and clusters above the portable 8 blocks.  A
+// launch then sets nothing, so host threads launching at once never change
+// an attribute under one another's launch (measured on the card: when each
+// launch set its own shared-memory size, a launch from a server's second
+// thread failed with an invalid argument).  Returns a cudaError_t value (0
+// = ready).
+extern "C" int sdv_prepare_groupnorm() {
+  const cudaError_t set[] = {
+      prepare<float, 4, ONCHIP_NT>(), prepare<float, 4, STREAM_NT>(),
+      prepare<float, 1, ONCHIP_NT>(), prepare<float, 1, STREAM_NT>(),
+      prepare<__nv_bfloat16, 8, ONCHIP_NT>(),
+      prepare<__nv_bfloat16, 8, STREAM_NT>(),
+      prepare<__nv_bfloat16, 1, ONCHIP_NT>(),
+      prepare<__nv_bfloat16, 1, STREAM_NT>()};
+  for (cudaError_t e : set)
+    if (e != cudaSuccess) return (int)e;
+  return 0;
+}
 
 // x, y: (N, C, HW) contiguous, one dtype; scale, bias: (C,) contiguous, of
 // dtype w_dtype (fp32 or bf16).  Returns a cudaError_t value (0 =

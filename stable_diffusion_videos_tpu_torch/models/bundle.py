@@ -12,7 +12,11 @@ tower, OpenCLIP-bigG, whose projected pooled output feeds the UNet's
 text_time conditioning; ``is_xl``) and the SDXL refiner (bigG alone, 5
 text_time ids; ``refiner``).  A bundle may carry the NSFW safety checker
 (``safety_checker()``), and ``with_freeu``/``with_tome`` give a copy whose
-UNet applies FreeU or ToMe around the same weight tensors.
+UNet applies FreeU or ToMe around the same weight tensors.  ``tiled``: the
+UNet's and the KL autoencoder's 3x3 convolutions pad circularly, so frames
+tile seamlessly (``with_tiled``).  ``from_pretrained`` loads a
+diffusers-layout directory or hub id (``weights.load_sd_checkpoint``) or a
+single original-layout file (``ldm.load_ldm_checkpoint``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from ..core.schedulers import SchedulerConfig
 from .clip_text import CLIPTextConfig, CLIPTextEncoder
+from .layers import make_circular
 from .safety import SafetyChecker, SafetyConfig
 from .taesd import AutoencoderTiny, TAESDConfig
 from .tokenizer import BaseTokenizer, HashTokenizer
@@ -54,6 +59,9 @@ class SDModels:
     tokenizer_2: Optional[BaseTokenizer] = None
     #: the NSFW safety checker (``models/safety.py``), if attached
     safety: Optional[SafetyChecker] = None
+    #: circular 3x3 convolutions in the UNet and the KL autoencoder (and an
+    #: engine's ControlNets): seamlessly tileable frames
+    tiled: bool = False
 
     @property
     def is_xl(self) -> bool:
@@ -88,6 +96,36 @@ class SDModels:
             if m is not None:
                 m.to(device)
         return self
+
+    def with_tiled(self) -> "SDModels":
+        """The bundle with its UNet's and KL autoencoder's 3x3
+        convolutions padding circularly (``layers.make_circular``, in
+        place); TAESD keeps zero padding, as in the JAX package."""
+        make_circular(self.unet)
+        make_circular(self.vae)
+        return dataclasses.replace(self, tiled=True)
+
+    @classmethod
+    def from_pretrained(cls, path, dtype: torch.dtype = torch.bfloat16,
+                        tiled: bool = False, with_safety: bool = True,
+                        tokenizer_dir=None,
+                        prediction_type: Optional[str] = None
+                        ) -> "SDModels":
+        """A diffusers-layout directory or hub id
+        (``weights.load_sd_checkpoint``), or one original-layout
+        ``.ckpt``/``.safetensors`` file (``ldm.load_ldm_checkpoint``, its
+        geometry from the tensors' shapes; ``tokenizer_dir`` and
+        ``prediction_type`` apply to such files alone, which carry neither
+        a vocabulary nor a scheduler config), on the CPU in ``dtype``."""
+        from pathlib import Path
+        if Path(path).is_file():
+            from .ldm import load_ldm_checkpoint
+            return load_ldm_checkpoint(path, tokenizer_dir=tokenizer_dir,
+                                       dtype=dtype, tiled=tiled,
+                                       prediction_type=prediction_type)
+        from .weights import load_sd_checkpoint
+        return load_sd_checkpoint(path, dtype=dtype, tiled=tiled,
+                                  with_safety=with_safety)
 
     def with_tome(self, ratio: float, max_level: int = 0) -> "SDModels":
         """Bundle copy whose UNet merges ``ratio`` of the self-attention
@@ -196,13 +234,16 @@ class SDModels:
 
     @classmethod
     def tiny(cls, seed: int = 0, taesd: bool = False,
-             with_safety: bool = False) -> "SDModels":
+             with_safety: bool = False, tiled: bool = False) -> "SDModels":
         """Tiny fp32 bundle: every code path, CPU-runnable; with ``taesd``
         a one-stage TAESD decoder too, with ``with_safety`` a tiny safety
-        checker (weights from ``seed + 5``)."""
+        checker (weights from ``seed + 5``), with ``tiled`` circular
+        convolutions."""
         models = cls.build(UNetConfig.tiny(), VAEConfig.tiny(),
                            CLIPTextConfig.tiny(), seed, 0.1, torch.float32,
                            TAESDConfig.tiny() if taesd else None)
+        if tiled:
+            models = models.with_tiled()
         if not with_safety:
             return models
         return models.with_safety_checker(SafetyChecker.random(

@@ -5,6 +5,8 @@ parameter names follow diffusers, so diffusers-named state dicts load
 without renaming.  Every GroupNorm goes through the GroupNorm(+SiLU) op and
 every attention through the flash attention op (``ops/``).  A module computes
 in the dtype of its parameters; GroupNorm statistics and softmax run in fp32.
+``make_circular`` switches a model's 3x3 convolutions to circular padding,
+the JAX package's ``conv_padding(tiled=True)``: seamlessly tileable frames.
 """
 
 from __future__ import annotations
@@ -109,6 +111,23 @@ class Downsample2D(nn.Module):
         if self.asymmetric:
             x = F.pad(x, (0, 1, 0, 1))
         return self.conv(x)
+
+
+def make_circular(module: nn.Module) -> nn.Module:
+    """Seamless tiling, in place: every 3x3 convolution of ``module`` pads
+    (1, 1) on both axes by wrapping around, whatever its stride (flax's
+    "CIRCULAR" pads ``((k-1)//2, k//2)``), the VAE encoder's asymmetric
+    downsample included; 1x1 convolutions pad nothing either way.  The JAX
+    package pads the UNet's, the KL autoencoder's and the ControlNet's
+    convolutions so under ``tiled``, never TAESD's."""
+    for m in module.modules():
+        if isinstance(m, Downsample2D):
+            m.asymmetric = False
+        if isinstance(m, nn.Conv2d) and m.kernel_size == (3, 3):
+            m.padding_mode = "circular"
+            m.padding = (1, 1)
+            m._reversed_padding_repeated_twice = [1, 1, 1, 1]
+    return module
 
 
 class Upsample2D(nn.Module):

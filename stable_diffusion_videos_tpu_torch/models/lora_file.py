@@ -253,7 +253,7 @@ def apply_lora(models, path, scale: float = 1.0):
     if str(path).endswith(".npz"):
         raise NotImplementedError(
             "the LoRA trainer's .npz format comes with training/lora.py, "
-            "which the PyTorch package does not have yet (ROADMAP item 22)")
+            "which the PyTorch package does not have yet (ROADMAP item 27)")
     groups = parse_lora_file(path)
     changes, total = {}, 0
     for grp, deltas in groups.items():
@@ -279,3 +279,15 @@ def apply_lora(models, path, scale: float = 1.0):
     logger.info("merged lora %s: %d modules at scale %.3g", path, total,
                 scale)
     return dataclasses.replace(models, **changes)
+
+
+def parse_lora_arg(arg: str) -> tuple[str, float]:
+    """The command line's ``path[:scale]`` -> (path, scale); a suffix that
+    is not a number stays part of the path."""
+    if ":" in arg:
+        head, tail = arg.rsplit(":", 1)
+        try:
+            return head, float(tail)
+        except ValueError:
+            pass
+    return arg, 1.0

@@ -174,3 +174,14 @@ def apply_textual_inversion(models, path, token: str | None = None):
     logger.info("textual inversion %s: trigger %r -> %d vector(s)", path,
                 ti.token, ti.n_vectors)
     return dataclasses.replace(models, **changes)
+
+
+def parse_ti_arg(arg: str) -> tuple[str, str | None]:
+    """The command line's ``path[:token]`` -> (path, token or None).  A
+    suffix holding a slash or a dot (a file suffix, a path) stays part of
+    the path, so a path with a drive colon still parses."""
+    if ":" in arg:
+        head, tail = arg.rsplit(":", 1)
+        if tail and "/" not in tail and "." not in tail.rstrip(">"):
+            return head, tail
+    return arg, None

@@ -27,6 +27,13 @@
 * ``shared_copy(module)`` copies a module's structure around the same
   parameter tensors, so an adapter merged into the copy leaves the original
   untouched without a second copy of its weights.
+* ``load_sd_checkpoint(path)`` builds an ``SDModels`` from a
+  diffusers-layout directory or hub id (``resolve_checkpoint``): the
+  configs from each ``config.json`` (``controlnet.config_from_json`` for
+  the UNet, ``vae_config_from_json``, ``text_config_from_json``,
+  ``scheduler_config_from_json``), the tensors from each weights file
+  (``load_state_dict_file``) as they are, fitted to the modules' names
+  (``fit_state_dict``).
 * ``load_realesrgan(path)`` reads a Real-ESRGAN ``.pth`` (the weights inside
   ``params_ema`` or ``params``) or ``.safetensors`` file and infers the
   RRDBNet's geometry from its tensors.
@@ -35,6 +42,7 @@
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import struct
@@ -434,3 +442,237 @@ def load_realesrgan(path) -> tuple[RRDBNetConfig, dict]:
         num_grow_ch=int(sd["body.0.rdb1.conv1.weight"].shape[0]),
         scale=scale)
     return config, sd
+
+
+# ---------------------------------------------------------------------------
+# checkpoints: a diffusers-layout directory or hub id
+# ---------------------------------------------------------------------------
+
+#: the wrappers a ``torch.load`` checkpoint may nest its weights under
+_WRAPPERS = ("params_ema", "params", "state_dict")
+
+
+def load_state_dict_file(path) -> dict:
+    """A weights file -> its flat name -> tensor dict (CPU): ``.safetensors``
+    through ``read_safetensors``, ``.bin``/``.pth``/``.pt``/``.ckpt``
+    through ``torch.load(weights_only=True)``, unwrapped from
+    ``params_ema``, ``params`` or ``state_dict`` (the JAX package's
+    ``load_state_dict(path)``)."""
+    sd = read_weights(path)
+    for wrapper in _WRAPPERS:
+        if isinstance(sd.get(wrapper), dict):
+            return sd[wrapper]
+    return sd
+
+
+def _read_json(path: Path) -> dict:
+    return json.loads(path.read_text()) if path.exists() else {}
+
+
+def vae_config_from_json(cfg: dict) -> VAEConfig:
+    """A diffusers AutoencoderKL ``config.json`` -> VAEConfig, with its
+    ``scaling_factor`` (0.18215 for SD 1.x/2.x, 0.13025 for SDXL)."""
+    return VAEConfig(
+        in_channels=cfg.get("in_channels", 3),
+        out_channels=cfg.get("out_channels", 3),
+        latent_channels=cfg.get("latent_channels", 4),
+        block_out_channels=tuple(cfg.get("block_out_channels",
+                                         (128, 256, 512, 512))),
+        layers_per_block=cfg.get("layers_per_block", 2),
+        scaling_factor=cfg.get("scaling_factor", 0.18215))
+
+
+def text_config_from_json(cfg: dict, penultimate: bool = False,
+                          with_projection: bool = False) -> CLIPTextConfig:
+    """A transformers CLIP text ``config.json`` -> CLIPTextConfig, with its
+    ``hidden_act`` (quick_gelu for OpenAI CLIP, gelu for OpenCLIP), the
+    penultimate output (SDXL's towers) and the pooled projection (SDXL's
+    tower 2)."""
+    return CLIPTextConfig(
+        vocab_size=cfg.get("vocab_size", 49408),
+        hidden_size=cfg.get("hidden_size", 768),
+        intermediate_size=cfg.get("intermediate_size", 3072),
+        num_layers=cfg.get("num_hidden_layers", 12),
+        num_heads=cfg.get("num_attention_heads", 12),
+        max_position_embeddings=cfg.get("max_position_embeddings", 77),
+        hidden_act=cfg.get("hidden_act", "quick_gelu"),
+        penultimate_hidden=penultimate,
+        projection_dim=(cfg.get("projection_dim", 1280) if with_projection
+                        else None))
+
+
+def scheduler_config_from_json(cfg: dict):
+    """A diffusers ``scheduler_config.json`` -> SchedulerConfig."""
+    from ..core.schedulers import SchedulerConfig
+    return SchedulerConfig(
+        num_train_timesteps=cfg.get("num_train_timesteps", 1000),
+        beta_start=cfg.get("beta_start", 0.00085),
+        beta_end=cfg.get("beta_end", 0.012),
+        beta_schedule=cfg.get("beta_schedule", "scaled_linear"),
+        prediction_type=cfg.get("prediction_type", "epsilon"),
+        steps_offset=cfg.get("steps_offset", 1),
+        clip_sample=cfg.get("clip_sample", False),
+        set_alpha_to_one=cfg.get("set_alpha_to_one", False),
+        skip_prk_steps=cfg.get("skip_prk_steps", True),
+        timestep_spacing=cfg.get("timestep_spacing", "leading"),
+        rescale_betas_zero_snr=cfg.get("rescale_betas_zero_snr", False))
+
+
+#: the files worth pulling from a hub snapshot (no .ckpt dumps)
+_HUB_ALLOW_PATTERNS = ["*.json", "*.txt", "*.safetensors", "*.bin"]
+
+
+def resolve_checkpoint(path_or_id, cache_dir=None, revision=None) -> Path:
+    """A local directory, or a hub id ``org/name`` fetched with
+    ``huggingface_hub.snapshot_download`` when that package is installed.
+    Anything else, an id without the package, or a failed download raises
+    ``FileNotFoundError`` saying which."""
+    import re
+    root = Path(path_or_id)
+    if root.exists():
+        return root
+    if not re.fullmatch(r"[\w.\-]+/[\w.\-]+", str(path_or_id)):
+        raise FileNotFoundError(
+            f"{path_or_id!r} is neither a local diffusers-layout directory "
+            "nor a hub id of the form 'org/name'")
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError as e:
+        raise FileNotFoundError(
+            f"{path_or_id!r} is not a local directory and huggingface_hub "
+            "is not installed to download it") from e
+    try:
+        return Path(snapshot_download(repo_id=str(path_or_id),
+                                      revision=revision, cache_dir=cache_dir,
+                                      allow_patterns=_HUB_ALLOW_PATTERNS))
+    except Exception as e:
+        raise FileNotFoundError(
+            f"could not download {path_or_id!r} from the Hugging Face hub "
+            f"(offline or repo missing): {type(e).__name__}: {e}") from e
+
+
+#: older diffusers names of the VAE's mid-block attention
+_LEGACY_VAE_ATTN = {"query": "to_q", "key": "to_k", "value": "to_v",
+                    "proj_attn": "to_out.0"}
+
+
+def fit_state_dict(module: nn.Module, sd: dict) -> dict:
+    """``sd`` renamed to ``module``'s names where checkpoints differ, and
+    cut to them: a CLIP tower's names without ``text_model.``, the VAE
+    attention's legacy ``query``/``key``/``value``/``proj_attn`` and their
+    1x1-convolution shapes.  Entries the module has no slot for (a
+    ``position_ids`` buffer, a tower's unused projection) are dropped; a
+    missing one is left for ``load_state_dict`` to report."""
+    own = module.state_dict()
+    out = {}
+    for k, v in sd.items():
+        if f"text_model.{k}" in own and k not in own:
+            k = f"text_model.{k}"
+        head, _, leaf = k.rpartition(".")
+        pfx, _, name = head.rpartition(".")
+        if name in _LEGACY_VAE_ATTN and ".attentions." in pfx:
+            k = f"{pfx}.{_LEGACY_VAE_ATTN[name]}.{leaf}"
+        if k not in own:
+            continue
+        if len(v.shape) == 4 and len(own[k].shape) == 2:
+            v = v[:, :, 0, 0]
+        out[k] = v
+    return out
+
+
+def build_module(cls, config, sd: dict, dtype: torch.dtype) -> nn.Module:
+    """``cls(config)`` built on the meta device and filled from ``sd``
+    (``fit_state_dict``) in ``dtype``, in eval mode without gradients."""
+    with torch.device("meta"):
+        m = cls(config)
+    load_state_dict(m, fit_state_dict(m, sd), dtype)
+    return m.eval().requires_grad_(False)
+
+
+def load_sd_checkpoint(path, dtype: torch.dtype = torch.bfloat16,
+                       tiled: bool = False, with_safety: bool = True):
+    """A diffusers-layout checkpoint directory, or a hub id, -> SDModels:
+    SD 1.x and 2.x (``unet/``, ``vae/``, ``text_encoder/``,
+    ``tokenizer/``), SDXL-base (also ``text_encoder_2/`` and
+    ``tokenizer_2/``, padding with 0) and the SDXL refiner (the bigG tower
+    alone, in ``text_encoder_2/``); the ``safety_checker/`` when present
+    and ``with_safety``; the sampler's ``scheduler/scheduler_config.json``.
+    The modules take diffusers names, so the tensors load as they are, in
+    ``dtype``; ``tiled``: circular 3x3 convolutions (seamless frames)."""
+    from .bundle import SDModels
+    from .clip_text import CLIPTextEncoder
+    from .controlnet import config_from_json
+    from .safety import load_safety_checker
+    from .tokenizer import CLIPBPETokenizer
+    from .unet import UNet2DCondition
+    from .vae import AutoencoderKL
+
+    root = resolve_checkpoint(path)
+    # heads (diffusers' attention_head_dim), per-level depth, text_time: the
+    # pooled width is the MLP's input less 6 ids until tower 2 pins it
+    ucfg = config_from_json(_read_json(root / "unet" / "config.json"))
+    vcfg = vae_config_from_json(_read_json(root / "vae" / "config.json"))
+    is_xl = (ucfg.addition_embed_dim is not None
+             or (root / "text_encoder_2").exists())
+    # the refiner ships the bigG tower alone, as text_encoder_2
+    has_tower1 = (root / "text_encoder").exists()
+    if not has_tower1 and not is_xl:
+        raise FileNotFoundError(f"{root} has no text_encoder/ (and no "
+                                "text_encoder_2/ to fall back on)")
+
+    def weights(sub):
+        return load_state_dict_file(find_weights_file(root / sub))
+
+    tcfg = tower = None
+    if has_tower1:
+        tcfg = text_config_from_json(
+            _read_json(root / "text_encoder" / "config.json"),
+            penultimate=is_xl)
+        tower = build_module(CLIPTextEncoder, tcfg, weights("text_encoder"),
+                             dtype)
+    tcfg2 = tower2 = None
+    if is_xl:
+        tcfg2 = text_config_from_json(
+            _read_json(root / "text_encoder_2" / "config.json"),
+            penultimate=True, with_projection=True)
+        tower2 = build_module(CLIPTextEncoder, tcfg2,
+                              weights("text_encoder_2"), dtype)
+        # the UNet's json gives pooled + ids as one width; tower 2's
+        # projection pins the split (base 2816 = 1280 + 6·256, refiner
+        # 2560 = 1280 + 5·256, the fifth id the aesthetic score)
+        proj_in = ucfg.addition_pooled_dim + 6 * ucfg.addition_embed_dim
+        ucfg = dataclasses.replace(
+            ucfg, addition_pooled_dim=tcfg2.projection_dim,
+            addition_num_ids=((proj_in - tcfg2.projection_dim)
+                              // ucfg.addition_embed_dim))
+        if not has_tower1:
+            tcfg, tower = tcfg2, tower2
+    unet = build_module(UNet2DCondition, ucfg, weights("unet"), dtype)
+    vae = build_module(AutoencoderKL, vcfg, weights("vae"), dtype)
+
+    tok_dir = root / "tokenizer"
+    if (not (tok_dir / "vocab.json").exists()
+            and (root / "tokenizer_2" / "vocab.json").exists()):
+        tok_dir = root / "tokenizer_2"  # the refiner's layout
+    tokenizer = CLIPBPETokenizer(tok_dir / "vocab.json",
+                                 tok_dir / "merges.txt")
+    tokenizer_2 = None
+    if is_xl:
+        tok2_dir = root / "tokenizer_2"
+        if not (tok2_dir / "vocab.json").exists():
+            tok2_dir = tok_dir
+        # OpenCLIP's tokenizer pads with 0, not with EOS
+        tokenizer_2 = CLIPBPETokenizer(tok2_dir / "vocab.json",
+                                       tok2_dir / "merges.txt",
+                                       pad_token_id=0)
+    models = SDModels(
+        ucfg, vcfg, tcfg, unet, vae, tower, tokenizer,
+        scheduler_config_from_json(
+            _read_json(root / "scheduler" / "scheduler_config.json")),
+        text_config_2=tcfg2, text_encoder_2=tower2, tokenizer_2=tokenizer_2)
+    if tiled:
+        models = models.with_tiled()
+    if with_safety and (root / "safety_checker").exists():
+        models = models.with_safety_checker(
+            load_safety_checker(root / "safety_checker", dtype))
+    return models

@@ -9,17 +9,20 @@ runtime is linked: the one driver-API function the kernels use
 first call that needs a kernel, into ``_build/<hash of the sources>/``
 beside the package (listed in ``.gitignore``), and uses nothing but the
 repository's sources.  No build happens at import: the CPU test suite
-imports every module on a host that has no ``nvcc``.
+imports every module on a host that has no ``nvcc``.  The first call builds
+under a module lock, so threads that make their first kernel call at once
+(a server's handler and batcher threads) wait for one build and share its
+library.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +34,9 @@ COMPILE_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+#: held while the library is built and loaded
+_LOCK = threading.Lock()
+_LOADED: list[ctypes.CDLL] = []
 
 
 def _sources() -> list[Path]:
@@ -45,11 +51,20 @@ def _nvcc() -> str:
     return found
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
-    build yet.  ``library.build_seconds`` and ``library.ptxas_log`` record
-    what the build did (0.0 and "" when a finished build was found)."""
+    build yet; one build and one load a process, whatever the threads.
+    ``library.build_seconds`` and ``library.ptxas_log`` record what the
+    build did (0.0 and "" when a finished build was found)."""
+    if _LOADED:
+        return _LOADED[0]
+    with _LOCK:
+        if not _LOADED:
+            _LOADED.append(_build_and_load())
+        return _LOADED[0]
+
+
+def _build_and_load() -> ctypes.CDLL:
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
@@ -59,9 +74,9 @@ def library() -> ctypes.CDLL:
     library.build_seconds, library.ptxas_log = 0.0, ""
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # names of this process: a concurrent build never loads a
-        # half-written library
-        tag = os.getpid()
+        # names of this process and thread: a concurrent build (another
+        # process on the same checkout) never loads a half-written library
+        tag = f"{os.getpid()}.{threading.get_ident()}"
         tmp = out_dir / f"libsdv_kernels.{tag}.so"
         nvcc = _nvcc()
         cus = sorted(CSRC.glob("*.cu"))
@@ -99,6 +114,15 @@ def library() -> ctypes.CDLL:
     lib.sdv_groupnorm_silu.restype = _I
     lib.sdv_error_string.argtypes = [_I]
     lib.sdv_error_string.restype = ctypes.c_char_p
+    # what every launch needs once (attributes, the tensor-map encoder),
+    # here under the lock, so that no launch from any thread sets it up
+    for prepare in (lib.sdv_prepare_attention, lib.sdv_prepare_groupnorm):
+        prepare.argtypes = []
+        prepare.restype = _I
+        err = prepare()
+        if err != 0:
+            raise RuntimeError(f"{prepare.__name__}: CUDA error {err} "
+                               f"({lib.sdv_error_string(err).decode()})")
     return lib
 
 

@@ -6,7 +6,7 @@ Counterpart of ``stable_diffusion_videos_tpu/pipeline/image_generation.py``
 ``{seed}{ext}`` beside ``prompt_config.json``, each batch one dispatch,
 post-processed (safety, and Real-ESRGAN with ``upsample``) on the device.
 ControlNet maps and prompt weighting are taken as the walk takes them.
-Uploading to the hub (``push_to_hub``) waits for the port's hub module.
+``push_to_hub`` uploads the folder to a hub dataset repo (``hub.py``).
 """
 
 from __future__ import annotations
@@ -37,11 +37,11 @@ def generate_images(pipeline, prompt: str, batch_size: Optional[int] = 1,
     """Generate ``batch_size · num_batches`` images of ``prompt``, one seed
     each (random seeds when ``seeds`` is None), into ``output_dir/name``;
     -> the image paths.  The upsampler's weights are provisioned, and
-    ``push_to_hub`` refused, before the directory is made."""
-    if push_to_hub:
-        raise NotImplementedError(
-            "generate_images(push_to_hub=True) waits for the hub module, "
-            "which the PyTorch package does not have yet")
+    ``push_to_hub`` without ``repo_id`` refused, before the directory is
+    made; with ``push_to_hub`` the directory is uploaded to the dataset
+    repo ``repo_id`` when the images are written."""
+    if push_to_hub and repo_id is None:
+        raise ValueError("push_to_hub=True requires repo_id")
     height = height or pipeline.models.default_size
     width = width or pipeline.models.default_size
     batch_size = batch_size or pipeline.models.default_batch_size
@@ -68,7 +68,8 @@ def generate_images(pipeline, prompt: str, batch_size: Optional[int] = 1,
         seeds=seeds, num_inference_steps=num_inference_steps,
         guidance_scale=guidance_scale, eta=eta, upsample=upsample,
         height=height, width=width, negative_prompt=negative_prompt,
-        scheduler=pipeline.engine.scheduler_name, tiled=False,
+        scheduler=pipeline.engine.scheduler_name,
+        tiled=pipeline.models.tiled,
         device=str(pipeline.device),
         framework="stable_diffusion_videos_tpu_torch",
     ), indent=2, sort_keys=True))
@@ -88,16 +89,22 @@ def generate_images(pipeline, prompt: str, batch_size: Optional[int] = 1,
             xl_kw = dict(pooled=pooled.expand(
                 (len(batch_seeds),) + tuple(pooled.shape[1:])),
                 uncond_pooled=pipeline._pooled(neg))
-        imgs, valid = pipeline.engine.denoise_frames_async(
-            embed.expand((len(batch_seeds),) + tuple(embed.shape[1:])),
-            uncond, noise, num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, eta=eta, output_dtype="uint8",
-            **xl_kw, **ctrl_kw)
+        with pipeline.timer.stage("denoise", sync=pipeline.device):
+            imgs, valid = pipeline.engine.denoise_frames_async(
+                embed.expand((len(batch_seeds),) + tuple(embed.shape[1:])),
+                uncond, noise, num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, eta=eta, output_dtype="uint8",
+                **xl_kw, **ctrl_kw)
+        pipeline.timer.add_frames(valid)
         for seed, pil in zip(batch_seeds, pipeline._postprocess(
                 imgs[:valid], upsample)):
             path = save_path / f"{seed}{image_file_ext}"
             pil.save(path)
             paths.append(str(path))
+    if push_to_hub:
+        from ..hub import upload_folder_chunked
+        upload_folder_chunked(repo_id, save_path, private=private,
+                              create_pr=create_pr)
     return paths
 
 

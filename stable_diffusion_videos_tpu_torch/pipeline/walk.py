@@ -47,6 +47,15 @@ checker, on by default when it has one), ``upsample=`` (Real-ESRGAN,
 are quantised, checked, blacked out where flagged and upsampled on the
 device, after the next batch is enqueued, then copied to the host.  The
 JAX pipeline's ``mesh`` stays refused (one card).
+
+Serving: ``timer`` (``utils/profiling.StageTimer``) sums the seconds of the
+embed, denoise, transfer, save, encode, upsample and audio stages and the
+frames made, each stage ending where its device work ends; ``on_progress``
+(a callable) receives ``{clip, clips_total, frames_done, frames_total}``
+as ``walk`` and ``vid2vid`` advance, and an exception it raises aborts the
+run through the cleanup that removes a half-written video.
+``from_pretrained`` loads a diffusers-layout directory, a hub id or a
+single original-layout file, with LoRA and textual-inversion files merged.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from ..models.bundle import SDModels
 from ..models.controlnet import load_controlnet
 from ..models.ip_adapter import load_ip_adapter
 from ..runtime.engine import Engine, quantise, refuse_unported
+from ..utils.profiling import StageTimer
 from .upsampling import RealESRGANModel
 
 logger = logging.getLogger("sdv_torch")
@@ -273,6 +283,57 @@ class StableDiffusionWalkPipeline:
         self.upsampler: Optional[RealESRGANModel] = None
         #: (weights path, model) of the upsampler this pipeline loaded
         self._loaded_upsampler: Optional[tuple] = None
+        self.timer = StageTimer()
+        #: callable(dict) or None: {clip, clips_total, frames_done,
+        #: frames_total} as walk() and vid2vid() advance (the server's
+        #: /jobs/<id> shows it); what it raises aborts the run
+        self.on_progress = None
+        self._progress: Optional[dict] = None
+
+    def set_scheduler(self, name: str) -> None:
+        """Switch the engine's sampler (``Engine.set_scheduler``)."""
+        self.engine.set_scheduler(name)
+
+    def _advance_progress(self, frames: int) -> None:
+        if self._progress is not None:
+            self._progress["frames_done"] += int(frames)
+            if self.on_progress is not None:
+                self.on_progress(dict(self._progress))
+
+    @classmethod
+    def from_pretrained(cls, path, device: Union[str, torch.device] = "cuda",
+                        scheduler: str = "pndm",
+                        dtype: torch.dtype = torch.bfloat16,
+                        tiled: bool = False, tokenizer_dir=None,
+                        prediction_type: Optional[str] = None, lora=None,
+                        lora_scale: float = 1.0, textual_inversion=None,
+                        **kw) -> "StableDiffusionWalkPipeline":
+        """A pipeline on ``device`` (the card unless the caller asks for
+        the CPU) over ``SDModels.from_pretrained(path, dtype, tiled,
+        tokenizer_dir, prediction_type)``: a diffusers-layout directory, a
+        hub id or one original-layout ``.ckpt``/``.safetensors`` file.
+        ``lora``: a LoRA file or a list of them, each a path or (path,
+        scale), merged at ``lora_scale`` by default
+        (``models/lora_file.py``); ``textual_inversion``: an embedding file
+        or a list, each a path or (path, token)
+        (``models/textual_inversion.py``); the rest, ``controlnet`` among
+        it, goes to the constructor."""
+        from ..models.lora_file import apply_lora
+        from ..models.textual_inversion import apply_textual_inversion
+        models = SDModels.from_pretrained(
+            path, dtype=dtype, tiled=tiled, tokenizer_dir=tokenizer_dir,
+            prediction_type=prediction_type)
+        for item in ([lora] if isinstance(lora, (str, Path)) else lora or ()):
+            p, scale = (item if isinstance(item, (tuple, list))
+                        else (item, lora_scale))
+            models = apply_lora(models, p, float(scale))
+        for item in ([textual_inversion]
+                     if isinstance(textual_inversion, (str, Path))
+                     else textual_inversion or ()):
+            p, token = (item if isinstance(item, (tuple, list))
+                        else (item, None))
+            models = apply_textual_inversion(models, p, token=token)
+        return cls(models, torch.device(device), scheduler=scheduler, **kw)
 
     @classmethod
     def tiny(cls, device: torch.device, seed: int = 0,
@@ -297,9 +358,10 @@ class StableDiffusionWalkPipeline:
     def _embed(self, prompt: str, num_chunks: Optional[int] = None):
         """One prompt's context: weighted at ``num_chunks`` windows under
         ``prompt_weighting``, else plain."""
-        if self.prompt_weighting:
-            return self.engine.embed_text_weighted(prompt, num_chunks)
-        return self.engine.embed_text(prompt)
+        with self.timer.stage("embed", sync=self.device):
+            if self.prompt_weighting:
+                return self.engine.embed_text_weighted(prompt, num_chunks)
+            return self.engine.embed_text(prompt)
 
     def _num_chunks(self, *prompts) -> Optional[int]:
         """The window count that every prompt of one dispatch shares under
@@ -387,7 +449,8 @@ class StableDiffusionWalkPipeline:
             flags = self.engine.check_safety(x.float() / 255.0)
             x = x.masked_fill(flags[:, None, None, None], 0)
         if upsample:
-            x = quantise(self.upsampler(x.float() / 255.0))
+            with self.timer.stage("upsample", sync=self.device):
+                x = quantise(self.upsampler(x.float() / 255.0))
         frames = x.cpu().numpy()
         if flags is not None:
             flags = flags.cpu().numpy()
@@ -519,20 +582,40 @@ class StableDiffusionWalkPipeline:
                                        batch_size, num_chunks)
         save_futures = []
 
+        on_card = self.device.type == "cuda"
+        denoise_end = [0.0]
+
         def drain(pool, pending):
             # enqueued after the next batch: the card runs that batch's
             # denoise, then this one's post-processing
-            imgs_dev, valid, start = pending
-            frames, _ = self._postprocess_frames(imgs_dev[:valid], upsample)
-            for j, frame in enumerate(frames):
-                # PNG encoding on worker threads; the sink is fed in order
-                save_futures.append(pool.submit(
-                    write_png, save_path / f"frame{start + j:06d}.png", frame))
-                if frame_sink is not None:
-                    frame_sink.add_frame(frame)
+            imgs_dev, valid, start, t_enqueue, done = pending
+            # the denoise stage ends where this batch's device work does
+            # (its event), and starts no earlier than the last one ended
+            if done is not None:
+                done.synchronize()
+            t_done = time.perf_counter()
+            self.timer.add("denoise", t_done - max(t_enqueue,
+                                                   denoise_end[0]))
+            denoise_end[0] = t_done
+            with self.timer.stage("transfer"):
+                frames, _ = self._postprocess_frames(imgs_dev[:valid],
+                                                     upsample)
+            with self.timer.stage("save"):
+                for j, frame in enumerate(frames):
+                    # PNG encoding on worker threads; the sink is fed in
+                    # order
+                    save_futures.append(pool.submit(
+                        write_png, save_path / f"frame{start + j:06d}.png",
+                        frame))
+                    if frame_sink is not None:
+                        frame_sink.add_frame(frame)
+            self.timer.add_frames(valid)
+            self._advance_progress(valid)
 
         frame_index = skip
-        pending = None  # (frames on the device, valid, first frame index)
+        # (frames on the device, valid, first frame index, enqueue time,
+        # the event after its denoise)
+        pending = None
         with ThreadPoolExecutor(max_workers=4,
                                 thread_name_prefix="frame-save") as pool:
             for batch_idx, (embeds, noise, pooled) in enumerate(batches):
@@ -544,6 +627,7 @@ class StableDiffusionWalkPipeline:
                               else dispatch_seed(seed_a, seed_b, 0
                                                  if self.engine.frozen_noise
                                                  else batch_idx))
+                t_enqueue = time.perf_counter()
                 imgs, valid = self.engine.denoise_frames_async(
                     embeds, uncond, noise,
                     num_inference_steps=num_inference_steps,
@@ -559,15 +643,20 @@ class StableDiffusionWalkPipeline:
                         else c[frame_index:frame_index + len(noise)]
                         for c in control],
                     control_scale=controlnet_scale, **ip_kw)
+                done = None
+                if on_card:
+                    done = torch.cuda.Event()
+                    done.record()
                 # overlap: save the previous batch while this one computes
                 if pending is not None:
                     drain(pool, pending)
-                pending = (imgs, valid, frame_index)
+                pending = (imgs, valid, frame_index, t_enqueue, done)
                 frame_index += valid
             if pending is not None:
                 drain(pool, pending)
-            for f in save_futures:
-                f.result()  # surface any save error
+            with self.timer.stage("save"):
+                for f in save_futures:
+                    f.result()  # surface any save error
 
     # ------------------------------------------------------------------
     # the edit paths
@@ -607,14 +696,17 @@ class StableDiffusionWalkPipeline:
             ctrl_kw = dict(control=load_control_image(
                 control_image, latents.shape[1] * f, latents.shape[2] * f),
                 control_scale=controlnet_scale)
-        images = self.engine.img2img(
-            init_latents=latents, strength=strength,
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, eta=eta,
-            generator=torch.Generator(self.device).manual_seed(int(seed)),
-            output_dtype="uint8" if output_type == "pil" else "float32",
-            **self._cond_uncond(prompt, negative_prompt, len(arr)),
-            **ctrl_kw, **self._ip_kwargs(ip_image, ip_scale))
+        text = self._cond_uncond(prompt, negative_prompt, len(arr))
+        with self.timer.stage("denoise"):
+            # ends in the copy to the host
+            images = self.engine.img2img(
+                init_latents=latents, strength=strength,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, eta=eta,
+                generator=torch.Generator(self.device).manual_seed(int(seed)),
+                output_dtype="uint8" if output_type == "pil" else "float32",
+                **text, **ctrl_kw, **self._ip_kwargs(ip_image, ip_scale))
+        self.timer.add_frames(len(images))
         return (self._postprocess(images, self.upsampler is not None)
                 if output_type == "pil" else images)
 
@@ -629,13 +721,16 @@ class StableDiffusionWalkPipeline:
         latents = self.engine.encode_image(arr * 2.0 - 1.0)
         B, lh, lw, _ = latents.shape
         m = latent_mask(mask, lh, lw)[None, :, :, None].expand(B, lh, lw, 1)
-        images = self.engine.inpaint(
-            init_latents=latents, mask=m,
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale,
-            generator=torch.Generator(self.device).manual_seed(int(seed)),
-            output_dtype="uint8" if output_type == "pil" else "float32",
-            **self._cond_uncond(prompt, negative_prompt, B))
+        text = self._cond_uncond(prompt, negative_prompt, B)
+        with self.timer.stage("denoise"):
+            images = self.engine.inpaint(
+                init_latents=latents, mask=m,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale,
+                generator=torch.Generator(self.device).manual_seed(int(seed)),
+                output_dtype="uint8" if output_type == "pil" else "float32",
+                **text)
+        self.timer.add_frames(len(images))
         return (self._postprocess(images, self.upsampler is not None)
                 if output_type == "pil" else images)
 
@@ -705,15 +800,21 @@ class StableDiffusionWalkPipeline:
             return max(grain, (int(n) // grain) * grain)
 
         src_fps = None
+        frames_total = None
         if isinstance(video, (str, Path)) and Path(video).is_file():
             info = probe_video(video)
             src_fps = info.get("fps") or None
+            if info.get("n_frames"):
+                frames_total = -(-info["n_frames"] // frame_skip)
             height = height or snap(info["height"])
             width = width or snap(info["width"])
             frames = read_video_frames(video, size=(height, width),
                                        frame_skip=frame_skip,
                                        max_frames=max_frames)
         else:
+            if hasattr(video, "__len__") and not isinstance(video,
+                                                            (str, Path)):
+                frames_total = -(-len(video) // frame_skip)
             base = (iter_frames(video)
                     if isinstance(video, (str, Path, np.ndarray))
                     else iter(video))
@@ -728,6 +829,10 @@ class StableDiffusionWalkPipeline:
                     if max_frames is not None and n >= max_frames:
                         return
             frames = prepared()
+        if frames_total is not None and max_frames is not None:
+            frames_total = min(frames_total, max_frames)
+        self._progress = {"clip": 0, "clips_total": 1, "frames_done": 0,
+                          "frames_total": frames_total}
         fps = fps or src_fps or 30.0
         ctrl_maps = None
         if control_video is not None:
@@ -792,23 +897,30 @@ class StableDiffusionWalkPipeline:
                                  len(ctrl_maps) - 1)
                 ctrl_kw = dict(control=ctrl_maps[idx],
                                control_scale=controlnet_scale)
-            images = self.engine.img2img(
-                init_latents=latents, strength=strength,
-                num_inference_steps=num_inference_steps,
-                guidance_scale=guidance_scale,
-                generator=torch.Generator(self.device).manual_seed(key),
-                noise=batch_noise, output_dtype="uint8", **args, **ctrl_kw,
-                **ip_kw)
-            for img in self._postprocess_frames(
-                    images, self.upsampler is not None)[0]:
-                if output_type == "frames":
-                    out_frames.append(img)
-                    continue
-                if writer is None:
-                    writer = FrameWriter(output_filepath, fps=float(fps),
-                                         audio=audio, audio_sr=sr)
-                writer.add_frame(img)
+            with self.timer.stage("denoise"):
+                # ends in the copy to the host
+                images = self.engine.img2img(
+                    init_latents=latents, strength=strength,
+                    num_inference_steps=num_inference_steps,
+                    guidance_scale=guidance_scale,
+                    generator=torch.Generator(self.device).manual_seed(key),
+                    noise=batch_noise, output_dtype="uint8", **args,
+                    **ctrl_kw, **ip_kw)
+            self.timer.add_frames(B)
+            with self.timer.stage("transfer"):
+                out = self._postprocess_frames(
+                    images, self.upsampler is not None)[0]
+            with self.timer.stage("save"):
+                for img in out:
+                    if output_type == "frames":
+                        out_frames.append(img)
+                        continue
+                    if writer is None:
+                        writer = FrameWriter(output_filepath, fps=float(fps),
+                                             audio=audio, audio_sr=sr)
+                    writer.add_frame(img)
             frame_idx += B
+            self._advance_progress(B)
 
         batch: list = []
         try:
@@ -845,7 +957,8 @@ class StableDiffusionWalkPipeline:
             raise ValueError("video source yielded no frames")
         if output_type == "frames":
             return to_pil(np.stack(out_frames))
-        return writer.close()
+        with self.timer.stage("encode"):
+            return writer.close()
 
     # ------------------------------------------------------------------
     # the product: walk()
@@ -960,7 +1073,8 @@ class StableDiffusionWalkPipeline:
                                 for c in control_image))
                     else None),
                 controlnet_scale=controlnet_scale,
-                scheduler=self.engine.scheduler_name, tiled=False,
+                scheduler=self.engine.scheduler_name,
+                tiled=self.models.tiled,
                 framework="stable_diffusion_videos_tpu_torch",
             ), indent=4, sort_keys=True))
 
@@ -970,8 +1084,12 @@ class StableDiffusionWalkPipeline:
         walk_noise_key = int(seeds[0]) if self.engine.frozen_noise else None
         clip_pairs = list(zip(prompts, prompts[1:], seeds, seeds[1:],
                               num_interpolation_steps))
+        self._progress = {"clip": 0, "clips_total": len(clip_pairs),
+                          "frames_done": 0,
+                          "frames_total": int(sum(num_interpolation_steps))}
         for i, (prompt_a, prompt_b, seed_a, seed_b, num_step) in enumerate(
                 clip_pairs):
+            self._progress["clip"] = i
             clip_name = f"{name}_{i:06d}"
             clip_dir = save_path_root / clip_name
             clip_video = clip_dir / f"{clip_name}.mp4"
@@ -985,6 +1103,7 @@ class StableDiffusionWalkPipeline:
                     if clip_dir.exists() else []
                 if vids:
                     logger.info("skipping completed clip %s", clip_name)
+                    self._advance_progress(num_step)
                     continue
                 existing = sorted(clip_dir.glob("frame*.png")) \
                     if clip_dir.exists() else []
@@ -992,6 +1111,7 @@ class StableDiffusionWalkPipeline:
                     skip = int(existing[-1].stem.lstrip("frame")) + 1
                     logger.info("resuming clip %s from frame %d", clip_name,
                                 skip)
+                    self._advance_progress(min(skip, num_step))
 
             audio_offset = audio_start_sec + sum(
                 num_interpolation_steps[:i]) / fps
@@ -1000,9 +1120,11 @@ class StableDiffusionWalkPipeline:
             if skip < num_step:
                 T = None
                 if audio_filepath:
-                    T = get_timesteps_arr(audio_filepath, offset=audio_offset,
-                                          duration=audio_duration, fps=fps,
-                                          margin=margin, smooth=smooth)
+                    with self.timer.stage("audio"):
+                        T = get_timesteps_arr(
+                            audio_filepath, offset=audio_offset,
+                            duration=audio_duration, fps=fps, margin=margin,
+                            smooth=smooth)
                 # frames stream into the clip encoder as they are made (the
                 # PNGs are still written, for resume); a partial resume
                 # replays the existing frames into the sink first
@@ -1036,7 +1158,8 @@ class StableDiffusionWalkPipeline:
                         upsample=upsample,
                         upsample_weights=self._upsampler_source())
                     if frame_sink is not None:
-                        frame_sink.close()
+                        with self.timer.stage("encode"):
+                            frame_sink.close()
                 except BaseException:
                     # a half-written container would read as a finished clip
                     if frame_sink is not None:
@@ -1046,19 +1169,22 @@ class StableDiffusionWalkPipeline:
                             missing_ok=True)
                     raise
             elif make_video:
-                assemble(clip_dir, audio_filepath=audio_filepath, fps=fps,
-                           output_filepath=str(clip_video),
-                           audio_offset=audio_offset,
-                           audio_duration=audio_duration,
-                           glob_pattern="*.png")
+                with self.timer.stage("encode"):
+                    assemble(clip_dir, audio_filepath=audio_filepath,
+                             fps=fps, output_filepath=str(clip_video),
+                             audio_offset=audio_offset,
+                             audio_duration=audio_duration,
+                             glob_pattern="*.png")
 
+        self.timer.log("walk")
         if make_video:
-            return assemble(
-                save_path_root, audio_filepath=audio_filepath, fps=fps,
-                output_filepath=str(save_path_root / f"{name}.mp4"),
-                audio_offset=audio_start_sec,
-                audio_duration=sum(num_interpolation_steps) / fps,
-                glob_pattern="**/frame*.png")
+            with self.timer.stage("encode"):
+                return assemble(
+                    save_path_root, audio_filepath=audio_filepath, fps=fps,
+                    output_filepath=str(save_path_root / f"{name}.mp4"),
+                    audio_offset=audio_start_sec,
+                    audio_duration=sum(num_interpolation_steps) / fps,
+                    glob_pattern="**/frame*.png")
         return str(save_path_root)
 
     # ------------------------------------------------------------------
@@ -1105,10 +1231,13 @@ class StableDiffusionWalkPipeline:
         xl_kw = (dict(pooled=pooled_embeddings,
                       uncond_pooled=self.engine.embed_text_pooled(neg))
                  if self.models.is_xl else {})
-        imgs, valid = self.engine.denoise_frames_async(
-            text_embeddings, self.engine.embed_text(neg), latents,
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, eta=eta, **xl_kw)
+        uncond = self.engine.embed_text(neg)
+        with self.timer.stage("denoise", sync=self.device):
+            imgs, valid = self.engine.denoise_frames_async(
+                text_embeddings, uncond, latents,
+                num_inference_steps=num_inference_steps,
+                guidance_scale=guidance_scale, eta=eta, **xl_kw)
+        self.timer.add_frames(valid)
         images = imgs[:valid]
         if return_dict:
             frames, flags = self._postprocess_frames(

@@ -36,13 +36,21 @@ contexts).
 ``check_safety``: the bundle's NSFW safety checker on frames in [0, 1], on
 the engine's device, in the bundle's dtype.
 
+Serving: ``denoise_frames_device`` (and the blocking ``denoise_frames``)
+split a batch in half and retry each half when the card runs out of memory,
+so a merged batch degrades to smaller dispatches instead of failing;
+``warmup`` runs one dispatch a (batch, output dtype) at zero inputs under a
+named sampler, leaving the engine's own sampler as it is.
+
 Options of the JAX engine that this port does not have yet are refused when
 set, never ignored (``UNPORTED``).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Optional, Union
 
@@ -53,7 +61,10 @@ from ..core.prompt_weighting import apply_token_weights, encode_weighted
 from ..core.schedulers import get_scheduler
 from ..core.schedulers.base import transition_noise
 from ..models.bundle import SDModels
+from ..models.layers import make_circular
 from ..models.safety import preprocess_for_safety
+
+logger = logging.getLogger("sdv_torch")
 
 #: JAX Engine options this port does not have yet
 UNPORTED = ("mesh", "spatial_shard", "debug")
@@ -81,6 +92,30 @@ def refuse_unported(owner: str, allowed: tuple, options: dict) -> None:
         if value is not None and value is not False:
             raise NotImplementedError(f"{owner}({name}=...) is not ported "
                                       "to the PyTorch package yet")
+
+
+def is_out_of_memory(err: BaseException) -> bool:
+    """Whether ``err`` is the card running out of memory: the caching
+    allocator's ``OutOfMemoryError``, or cuBLAS and cuDNN failing to
+    allocate their workspace, which they report as a plain
+    ``RuntimeError``."""
+    if isinstance(err, torch.cuda.OutOfMemoryError):
+        return True
+    return isinstance(err, RuntimeError) and any(
+        code in str(err) for code in ("CUBLAS_STATUS_ALLOC_FAILED",
+                                      "CUDNN_STATUS_ALLOC_FAILED"))
+
+
+def batch_part(x, rows: int, sl: slice):
+    """``x`` cut to the rows ``sl`` when it is batch-aligned (an array or
+    tensor of two or more axes and ``rows`` rows), recursing into lists and
+    tuples (several ControlNets' maps); anything else (scalars, a noise
+    source, a broadcast row) as it is."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(batch_part(e, rows, sl) for e in x)
+    if hasattr(x, "shape") and len(x.shape) >= 2 and x.shape[0] == rows:
+        return x[sl]
+    return x
 
 
 def apply_guidance(eps_u: torch.Tensor, eps_c: torch.Tensor, guidance: float,
@@ -162,6 +197,8 @@ class Engine:
                 raise ValueError("ControlNet cross_attention_dim does not "
                                  "match the bundle's UNet")
             cn.module.to(device=self.device, dtype=models.dtype)
+            if models.tiled:
+                make_circular(cn.module)
         self.scheduler_name = scheduler
         self.sched = get_scheduler(scheduler)
         #: dispatch batches are padded up to a multiple of this
@@ -191,6 +228,9 @@ class Engine:
         self.vae_tile = vae_tile
         self.vae_tile_overlap = vae_tile_overlap
         self._lock = threading.Lock()
+        #: (sampler, batch, latent h, w, steps, output dtype) of each
+        #: dispatch ``warmup`` ran
+        self.warmed: set = set()
         self._tables_cache: dict = {}
         #: prompt tuple -> (hidden states, pooled output or None)
         self._embed_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
@@ -720,8 +760,11 @@ class Engine:
         added = self._added_conds(pad, pooled, uncond_pooled, B, Bp, h, w)
         return pad, context, added
 
-    def _sampler(self) -> tuple:
-        """(name, sampler) of a dispatch, read once under the lock."""
+    def _sampler(self, name: Optional[str] = None) -> tuple:
+        """(name, sampler) of a dispatch: the named one, else the engine's,
+        read once under the lock."""
+        if name is not None:
+            return name, get_scheduler(name)
         with self._lock:
             return self.scheduler_name, self.sched
 
@@ -755,7 +798,8 @@ class Engine:
                              output_dtype: str = "float32", pooled=None,
                              uncond_pooled=None, control=None,
                              control_scale=1.0, guess_mode: bool = False,
-                             ip_tokens=None, ip_scale: float = 1.0):
+                             ip_tokens=None, ip_scale: float = 1.0,
+                             scheduler: Optional[str] = None):
         """Enqueue one dispatch; returns (frames on the device, valid).
 
         cond/uncond: (B, S, D) text embeddings (uncond may be (1, S, D));
@@ -775,7 +819,9 @@ class Engine:
         conditioned), weighted by ``control_scale`` (a float or one a net);
         ``guess_mode`` steers the cond half only.  ``ip_tokens``: (1 or B,
         T, D) image tokens of the engine's IP-Adapter
-        (``IPAdapter.image_tokens``), at ``ip_scale``."""
+        (``IPAdapter.image_tokens``), at ``ip_scale``.  ``scheduler``: the
+        sampler of this dispatch by name (the engine's own is left as it
+        is); by default the engine's."""
         self._check_output_dtype(output_dtype)
         noise = self._to_device(noise).float()
         B, h, w = noise.shape[:3]
@@ -784,7 +830,7 @@ class Engine:
         ctrl = self._ctrl_args(pad, control, control_scale, B, h, w)
         ip = self._ip_args(pad, ip_tokens, ip_scale, B)
         latents = pad(noise).permute(0, 3, 1, 2)
-        sched_name, sched = self._sampler()
+        sched_name, sched = self._sampler(scheduler)
         imgs = self._program(context, added, latents, float(guidance_scale),
                              sched, self._tables(sched_name, sched,
                                                  num_inference_steps, eta),
@@ -887,11 +933,84 @@ class Engine:
                              ip=self._ip_args(pad, ip_tokens, ip_scale, B))
         return imgs[:B].cpu().numpy()
 
+    def denoise_frames_device(self, cond, uncond, noise,
+                              **kw) -> torch.Tensor:
+        """``denoise_frames_async``'s frames cut to the batch, on the
+        device.  When the card runs out of memory (``is_out_of_memory``)
+        the cached blocks are freed, the batch is split in half, every
+        batch-aligned argument with it (``batch_part``: cond, uncond, the
+        pooled embeddings, per-frame control maps, image tokens), and each
+        half runs the same way; the halves' frames are concatenated.  A
+        deterministic sampler's frames do not depend on the split."""
+        B = int(noise.shape[0])
+        try:
+            imgs, valid = self.denoise_frames_async(cond, uncond, noise, **kw)
+            return imgs[:valid]
+        except RuntimeError as e:
+            if not is_out_of_memory(e) or B <= 1:
+                raise
+            logger.warning("out of device memory at batch %d (%s); retrying "
+                           "as %d + %d", B, type(e).__name__, B // 2,
+                           B - B // 2)
+        # outside the handler: the failed dispatch's tensors are released
+        # with its traceback before the halves allocate
+        if torch.device(self.device).type == "cuda":
+            torch.cuda.empty_cache()
+        half = B // 2
+        parts = []
+        for sl in (slice(None, half), slice(half, None)):
+            parts.append(self.denoise_frames_device(
+                batch_part(cond, B, sl), batch_part(uncond, B, sl),
+                batch_part(noise, B, sl),
+                **{k: batch_part(v, B, sl) for k, v in kw.items()}))
+        return torch.cat(parts)
+
     def denoise_frames(self, cond, uncond, noise, **kw) -> np.ndarray:
         """Blocking variant -> numpy (B, H, W, 3), float32 in [0, 1] (or
-        uint8 with ``output_dtype="uint8"``)."""
-        imgs, valid = self.denoise_frames_async(cond, uncond, noise, **kw)
-        return imgs[:valid].cpu().numpy()
+        uint8 with ``output_dtype="uint8"``), split on out-of-memory as
+        ``denoise_frames_device``."""
+        return self.denoise_frames_device(cond, uncond, noise,
+                                          **kw).cpu().numpy()
+
+    def warmup(self, *, num_inference_steps: int = 50,
+               height: Optional[int] = None, width: Optional[int] = None,
+               batches=(None,), output_dtype: str = "float32",
+               scheduler: Optional[str] = None) -> float:
+        """Run one dispatch a batch of ``batches`` (None: the bucket) at
+        zero inputs, so that the kernel library is built, loaded and its
+        kernels prepared, cuDNN has chosen its plans and the sampler's
+        tables are cached before the first request.  ``scheduler``: the sampler
+        to warm, by name (the engine's own is left as it is; by default
+        it).  Each (sampler, batch, latent size, steps, output dtype) is
+        added to ``warmed``.  -> the seconds it took, the device
+        synchronized."""
+        self._check_output_dtype(output_dtype)
+        sched_name = scheduler or self._sampler()[0]
+        height = height or self.models.default_size
+        width = width or self.models.default_size
+        f = self.models.vae_scale_factor
+        c = self.models.unet_config.in_channels
+        d = self.models.unet_config.cross_attention_dim
+        h, w = height // f, width // f
+        t0 = time.perf_counter()
+        for b in batches:
+            b = b or self.batch_bucket
+            cond = torch.zeros(b, 77, d, device=self.device)
+            kw = {}
+            if self.models.is_xl:
+                dp = self.models.unet_config.addition_pooled_dim
+                kw = dict(pooled=torch.zeros(b, dp, device=self.device),
+                          uncond_pooled=torch.zeros(1, dp,
+                                                    device=self.device))
+            self.denoise_frames_device(
+                cond, cond[:1], torch.zeros(b, h, w, c, device=self.device),
+                num_inference_steps=num_inference_steps,
+                output_dtype=output_dtype, scheduler=sched_name,
+                **kw).cpu()
+            with self._lock:
+                self.warmed.add((sched_name, b, h, w,
+                                 int(num_inference_steps), output_dtype))
+        return time.perf_counter() - t0
 
     @torch.no_grad()
     def check_safety(self, images) -> torch.Tensor:

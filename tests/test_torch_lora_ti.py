@@ -208,7 +208,7 @@ def test_unmatched_and_trainer_files_are_refused(sd1_bundles, tmp_path):
                                                            np.float32)})
     with pytest.raises(ValueError, match="no LoRA module matched"):
         apply_lora(pm, path)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item 27"):
         apply_lora(pm, tmp_path / "trainer.npz")
 
 

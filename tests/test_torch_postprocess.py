@@ -257,9 +257,9 @@ def test_generate_images_fails_before_writing(setup, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="SDV_REALESRGAN"):
         generate_images(port, "a", output_dir=str(tmp_path), name="x",
                         upsample=True, height=32, width=32)
-    with pytest.raises(NotImplementedError, match="hub"):
+    with pytest.raises(ValueError, match="repo_id"):
         generate_images(port, "a", output_dir=str(tmp_path), name="x",
-                        push_to_hub=True, repo_id="me/x")
+                        push_to_hub=True)
     assert not (tmp_path / "x").exists()
 
 

@@ -114,22 +114,16 @@ def test_walk_with_video_and_audio(tmp_path):
 
 @pytest.mark.parametrize("where,kw", [
     ("pipeline", dict(mesh=object())), ("engine", dict(mesh=object())),
-    ("engine", dict(spatial_shard=True)), ("engine", dict(debug=True)),
-    ("generate_images", dict(push_to_hub=True, repo_id="me/x"))])
+    ("engine", dict(spatial_shard=True)), ("engine", dict(debug=True))])
 def test_unported_options_raise(where, kw, tmp_path):
-    """What the port still refuses: the mesh (one card), spatial sharding,
-    the debug program and the hub upload."""
-    from stable_diffusion_videos_tpu_torch.pipeline.image_generation import \
-        generate_images
+    """What the port still refuses: the mesh (one card), spatial sharding
+    and the debug program."""
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
     with pytest.raises(NotImplementedError):
         if where == "pipeline":
             StableDiffusionWalkPipeline.tiny(CPU, **kw)
-        elif where == "engine":
-            Engine(SDModels.tiny(), CPU, **kw)
         else:
-            generate_images(StableDiffusionWalkPipeline.tiny(CPU), "a",
-                            output_dir=str(tmp_path), **kw)
+            Engine(SDModels.tiny(), CPU, **kw)
     with pytest.raises(TypeError, match="unexpected"):
         StableDiffusionWalkPipeline.tiny(CPU).walk(
             output_dir=str(tmp_path), **WALK, upsample_model="x.pth")
