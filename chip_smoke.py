@@ -128,10 +128,34 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    stable_diffusion_videos_tpu_torch serve --checkpoint DIR`` as a process,
    its image equal to the in-process server's.  Each counted run's launches
    by shape, every one of which phase 3 checks (the rows at UNet batch 2
-   and VAE batch 1, bf16).
+   and VAE batch 1, bf16);
+13. train: training on phase 5's bundle, gradients through both kernels'
+   backward kernels: ``UNetTrainer`` on 64² latents of two structured
+   images (the VAE's encode of them, batch 2) and their prompts' (2, 77,
+   768) context, EMA on, 3 steps (losses finite, masters moved; seconds a
+   step, least of the warm ones, and peak memory), warm steps with the
+   attention backward's tensor-core path and its FMA path in turns, one
+   step's gradients
+   with ``remat`` bit-equal to those without, a checkpoint saved, the run
+   stepped, restored and stepped again bit-equal; one fp32 step (TF32 off)
+   of the full-width UNet at 32² latents, batch 1, its gradient on the card
+   against the CPU's (cosine, max error over the largest, each leaf's
+   relative L2); LoRA rank 8, 3
+   steps (the base bit-unchanged), its ``.npz`` merged by ``apply_lora``
+   and an 8-frame dispatch on the merge; ``LCMDistiller`` 2 steps at batch
+   2 (the teacher's CFG call at batch 4); ``VAETrainer`` 2 steps at 512²,
+   batch 1 (the D=512 attention backward at S=4096), its reconstruction
+   PSNR.  Each counted run's forward and backward launches by shape, every
+   one of which phase 3 checks (forward rows at UNet batch 4, the encoder at
+   batch 2 and the fp32 UNet at 32²; backward rows in bf16 and fp32 beside
+   the plain backward, autograd through the library calls and the bound;
+   the bf16 attention rows also held to each gradient's own scale by a
+   check that must reject three planted faults, and at D <= 80 the FMA
+   path checked and timed beside the tensor cores).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
-the kernels' JSON record and ``{"ok": true, "device": {...}}``.
+the kernels' JSON record (the two forward kernels and the two backward
+ones) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -153,7 +177,8 @@ ROOT = Path(__file__).resolve().parent
 #: scratch space inside the checkout (listed in .gitignore)
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
-          "distilled", "families", "edit", "addons", "post", "serve")
+          "distilled", "families", "edit", "addons", "post", "serve",
+          "train")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -171,6 +196,20 @@ INPAINT_KEPT = dict(keep_all_max=1 / 255, half_mean=0.01)
 # it would pass a kernel that drops a key tile.  Limits: max|out-ref| over
 # max|ref|, and ||out-ref|| over ||ref||.
 ATTN_SCALED = dict(max_ratio=0.05, rel_l2=1e-2)
+# the bf16 attention backward is held to each gradient's own scale too: the
+# flat 2e-2 is about a third of dq's, dk's and dv's typical size at S=4096.
+# dq, dk and dv are bf16 roundings of fp32 sums (the tensor-core path also
+# rounds P and dS to bf16 before their products): about 2e-3 of relative L2
+# and 1e-2 of the largest element.  At every row the check must reject
+# three planted faults, each at 2.5e-2 or more: the last key tile dropped
+# from dq, the last q tile dropped from dk and from dv, and dS = P∘dP with
+# its D_i term left out (dq and dk).
+ATTN_BWD_SCALED = dict(max_ratio=0.02, rel_l2=1e-2)
+# (q rows, keys) of the backward's tiles by padded depth, as
+# csrc/attention_backward.cu has them (the tensor-core path's 64×64 at D <=
+# 80, the FMA path's BwdCfg): a planted fault drops one of the kernel's tiles
+ATTN_BWD_TILES = {48: (64, 64), 64: (64, 64), 80: (64, 64), 160: (64, 32),
+                  512: (32, 16)}
 # One H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
 # operations/s by element size (bf16 on the tensor cores, fp32 on the FMA
 # units) and device-memory bytes/s.  bound = max(operations/peak,
@@ -336,6 +375,46 @@ SERVE_GN_SHAPES = new_rows(
      for b, table in ((2, UNET_GN), (1, VAE_GN), (1, VAE_ENC_GN))
      for c, h, w, eps, silu in table],
     GN_SHAPES, FAMILY_GN_SHAPES, EDIT_GN_SHAPES)
+# Phase 13's training at 512² (64² latents): the UNet forward and backward
+# at batch 2 (the UNet and LoRA trainers, the distiller's student), the
+# distiller's teacher at CFG batch 4 (forward only), the encoder at batch 2
+# (the training images' latents, forward only), the VAE trainer's encoder
+# and decoder at batch 1 (forward and backward); and one fp32 step of the
+# UNet at 32² latents, batch 1.  Forward rows the tables above lack, bf16:
+TRAIN_ATTN_SHAPES = new_rows(
+    [(4, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+    + [(2, 4096, 4096, 1, 512)],
+    ATTN_SHAPES, FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES, ADDON_ATTN_SHAPES,
+    SERVE_ATTN_SHAPES)
+TRAIN_GN_SHAPES = new_rows(
+    [((b, c, h, w), eps, silu)
+     for b, table in ((4, UNET_GN), (2, VAE_ENC_GN))
+     for c, h, w, eps, silu in table],
+    GN_SHAPES, FAMILY_GN_SHAPES, EDIT_GN_SHAPES, SERVE_GN_SHAPES)
+# the fp32 step's UNet at 32² latents (forward and backward, fp32 weights)
+TRAIN_FP32_ATTN_SHAPES = [(1, sq // 4, sk if sk == 77 else sk // 4, 8, d)
+                          for sq, sk, d in UNET_ATTN]
+TRAIN_FP32_GN_SHAPES = [((1, c, h, w), eps, silu)
+                        for c, h, w, eps, silu in scaled_gn(UNET_GN, 1, 2)]
+# the backward kernels' keys, in bf16 (each also checked in fp32): the UNet
+# at batch 2, the VAE's mid-block attention and its encoder's and decoder's
+# GroupNorms at batch 1
+BWD_ATTN_SHAPES = ([(2, sq, sk, 8, d) for sq, sk, d in UNET_ATTN]
+                   + [(1, 4096, 4096, 1, 512)])
+BWD_GN_SHAPES = list(dict.fromkeys(
+    ((b, c, h, w), eps, silu)
+    for b, table in ((2, UNET_GN), (1, VAE_GN), (1, VAE_ENC_GN))
+    for c, h, w, eps, silu in table))
+# the card's fp32 gradient of the full-width UNet against the CPU's (TF32
+# off on the card): both sum the same terms in fp32 in other orders, through
+# the UNet's depth, forward and back.  The whole tree: cosine within 1e-4 of
+# 1, largest error within 1e-5 of the largest element (7.0e-7 read on an
+# H100).  Each leaf (every weight tensor, down to the GroupNorms' scales and
+# biases) to its own scale, so that a fault in a few small tensors does not
+# hide in the tree's sums: relative L2 within 1e-3.  On an H100 the median
+# leaf reads 2e-6 and the worst 1.2e-4 (the level-0 self-attentions' to_q
+# and to_k)
+TRAIN_GRAD_TOL = dict(cosine=1.0 - 1e-4, max_err=1e-5, leaf_rel_l2=1e-3)
 # the LoRA merge against its delta: the merged bf16 weight is the fp32 sum
 # W + delta rounded once, within half an ulp (2^-8 relative) of it, plus the
 # fp32 sums' own rounding (the check's delta is a matmul, the merge's an
@@ -509,6 +588,59 @@ def check_attn_scaled(name, out, q, k, v, ref, reference) -> str:
     return text
 
 
+def attn_bwd_faults(torch, q, k, v, o, do) -> list:
+    """The plain backward with one planted fault each, as (fault, index of
+    the gradient it changes in (dq, dk, dv), that gradient in q's dtype):
+    the last key tile dropped from dq, the last q tile dropped from dk and
+    from dv, and dS without its D_i term in dq and dk."""
+    sq, d, sk = q.shape[1], q.shape[3], k.shape[1]
+    scale = d ** -0.5
+    bq, bk = ATTN_BWD_TILES[next(p for p in ATTN_BWD_TILES if d <= p)]
+    kk, qk = (sk - 1) // bk * bk, (sq - 1) // bq * bq
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, -1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta)
+    faults = [
+        ("last key tile dropped", 0, torch.einsum(
+            "bhqk,bkhd->bqhd", ds[..., :kk], kf[:, :kk]) * scale),
+        ("last q tile dropped", 1, torch.einsum(
+            "bhqk,bqhd->bkhd", ds[:, :, :qk], qf[:, :qk]) * scale),
+        ("last q tile dropped", 2, torch.einsum(
+            "bhqk,bqhd->bkhd", p[:, :, :qk], dof[:, :qk]))]
+    del ds, delta
+    ds = p * dp
+    del p, dp
+    faults += [("D_i left out", 0, torch.einsum(
+                   "bhqk,bkhd->bqhd", ds, kf) * scale),
+               ("D_i left out", 1, torch.einsum(
+                   "bhqk,bqhd->bkhd", ds, qf) * scale)]
+    return [(fault, i, g.to(q.dtype)) for fault, i, g in faults]
+
+
+def check_attn_bwd_scaled(name, got, want, faults) -> str:
+    """The scaled check on each of dq, dk, dv against the plain backward's,
+    and its readings of the planted faults, each of which it must reject
+    in the gradient the fault changes."""
+    lim = ATTN_BWD_SCALED
+    text = "scaled (max ratio, rel l2)"
+    for t, out, ref in zip("qkv", got, want):
+        ratio, rel = scaled_err(out, ref)
+        if ratio > lim["max_ratio"] or rel > lim["rel_l2"]:
+            raise AssertionError(f"{name} d{t}: max ratio {ratio:.3e}, rel "
+                                 f"l2 {rel:.3e} over {lim}")
+        text += f" d{t} {ratio:.3e} {rel:.3e}"
+    for fault, i, bad in faults:
+        f_ratio, f_rel = scaled_err(bad, want[i])
+        if f_ratio <= lim["max_ratio"] and f_rel <= lim["rel_l2"]:
+            raise AssertionError(f"{name}: the scaled check passes a planted "
+                                 f"fault ({fault} in d{'qkv'[i]}: "
+                                 f"{f_ratio:.3e}, {f_rel:.3e})")
+        text += f"; {fault} d{'qkv'[i]}: {f_ratio:.3e} {f_rel:.3e}"
+    return text
+
+
 def plain_attention(torch, reference, q, k, v, scale=None):
     """The plain version over batch chunks whose fp32 scores stay within 4
     GB (SD 2.x's level 0 at CFG batch 16 would hold 27 GB at once): the
@@ -540,6 +672,26 @@ def gn_bound(shape, silu, elem_bytes) -> tuple[float, str]:
     return bound_ms((5 + 4 * silu) * n, nbytes, PEAK_OPS[4])
 
 
+def attn_bwd_bound(b, sq, sk, h, d, elem_bytes) -> tuple[float, str]:
+    """Least time (ms) for one attention backward: 10·Sq·Sk·D operations
+    a (b, h) (five products of the scores' size: q·kᵀ, do·vᵀ, Pᵀ·do, dSᵀ·q,
+    dS·k) at the type's peak; q, o, do, dq (Sq rows) and k, v, dk, dv (Sk
+    rows) moved once."""
+    ops = 10.0 * b * h * sq * sk * d
+    nbytes = elem_bytes * b * h * d * (4 * sq + 4 * sk)
+    return bound_ms(ops, nbytes, PEAK_OPS[elem_bytes])
+
+
+def gn_bwd_bound(shape, silu, elem_bytes) -> tuple[float, str]:
+    """Least time (ms) for one GroupNorm(+SiLU) backward: x and dy read
+    once, dx written once, the weights (fp32) read and their gradients
+    written once; about 10 operations an element (the statistics again, x̂,
+    two sums, dx) plus 8 for SiLU's derivative, on fp32 units."""
+    n = float(np.prod(shape))
+    nbytes = 3 * elem_bytes * n + 4 * 4 * shape[1]
+    return bound_ms((10 + 8 * silu) * n, nbytes, PEAK_OPS[4])
+
+
 def bound_ms(ops, nbytes, peak_ops) -> tuple[float, str]:
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
@@ -552,16 +704,19 @@ def phase_kernels(torch):
     import torch.nn.functional as F
 
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_reference, flash_attention_reference)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
-        fused_groupnorm_silu, groupnorm_reference)
+        fused_groupnorm_silu, groupnorm_backward_reference,
+        groupnorm_reference, groupnorm_silu_backward)
     from stable_diffusion_videos_tpu_torch.ops import build
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     lib = build.library()
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                           bound_ms=0.0, bound_by={})
-               for name in ("flash_attention", "groupnorm_silu")}
+               for name in ("flash_attention", "groupnorm_silu",
+                            "flash_attention_bwd", "groupnorm_silu_bwd")}
     # the same sums over the rows phase 8's families and phase 9's edit
     # paths add
     groups = {
@@ -590,7 +745,7 @@ def phase_kernels(torch):
             s["bound_ms"] += b_ms
             s["bound_by"][b_by] = s["bound_by"].get(b_by, 0.0) + b_ms
             for keys, sums in groups.values():
-                if (*key, dt) in keys:
+                if not name.endswith("_bwd") and (*key, dt) in keys:
                     for field, value in (("ms", ms), ("plain_ms", pms),
                                          ("library_ms", lms),
                                          ("bound_ms", b_ms)):
@@ -603,8 +758,9 @@ def phase_kernels(torch):
         # dtype only
         shapes = ATTN_SHAPES + (FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
                                 + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
-                                + SERVE_ATTN_SHAPES
-                                if dt == torch.bfloat16 else [])
+                                + SERVE_ATTN_SHAPES + TRAIN_ATTN_SHAPES
+                                if dt == torch.bfloat16
+                                else TRAIN_FP32_ATTN_SHAPES)
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
             k = torch.randn(b, sk, h, d, device=dev, generator=g).to(dt)
@@ -660,8 +816,9 @@ def phase_kernels(torch):
         for shape, eps, silu, w_dt in (
                 [(*c, dt) for c in GN_SHAPES]
                 + [(*c, dt) for c in (FAMILY_GN_SHAPES + EDIT_GN_SHAPES
-                                      + SERVE_GN_SHAPES
-                                      if dt == torch.bfloat16 else [])]
+                                      + SERVE_GN_SHAPES + TRAIN_GN_SHAPES
+                                      if dt == torch.bfloat16
+                                      else TRAIN_FP32_GN_SHAPES)]
                 + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
             scale = torch.randn(shape[1], device=dev, generator=g).to(w_dt)
@@ -686,6 +843,91 @@ def phase_kernels(torch):
                    f"{name} ({group_mb:.1f} MB a group)", dt, err, ms, pms,
                    lms, gn_bound(shape, silu, eb))
             del x
+        torch.cuda.empty_cache()
+        # the backward kernels against the plain backwards; the library is
+        # autograd through scaled_dot_product_attention, or group_norm+silu
+        for b, sq, sk, h, d in BWD_ATTN_SHAPES + (
+                TRAIN_FP32_ATTN_SHAPES if dt == torch.float32 else []):
+            q, k, v = (torch.randn(b, s_, h, d, device=dev,
+                                   generator=g).to(dt)
+                       for s_ in (sq, sk, sk))
+            do = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
+            o = flash_attention(q, k, v)
+            name = f"attn bwd {dn} B={b} Sq={sq} Sk={sk} H={h} D={d}"
+            got = flash_attention_backward(q, k, v, o, do)
+            want = flash_attention_backward_reference(q, k, v, o, do)
+            err = max(compare(torch, f"{name} d{t}", out, ref, dn)
+                      for t, out, ref in zip("qkv", got, want))
+            scaled = ""
+            if dt == torch.bfloat16:
+                scaled = "; " + check_attn_bwd_scaled(
+                    name, got, want, attn_bwd_faults(torch, q, k, v, o, do))
+            del got
+
+            def bwd():
+                return flash_attention_backward(q, k, v, o, do)
+            if dt == torch.bfloat16 and d % 8 == 0 and d <= 80:
+                # these rows run on the tensor cores; the FMA path at the
+                # same shape, checked the same way and timed in turns
+                # (tensor cores, FMA, FMA, tensor cores), least of each
+                lib.sdv_attention_backward_tensor_cores(0)
+                try:
+                    fma = bwd()
+                    err = max(err, *(compare(torch, f"{name} d{t} (FMA "
+                                             f"path)", out, ref, dn)
+                                     for t, out, ref in zip("qkv", fma,
+                                                            want)))
+                    scaled += "; FMA path " + check_attn_bwd_scaled(
+                        f"{name} (FMA path)", fma, want, [])
+                    del fma
+                    read = {1: [], 0: []}
+                    for on in (1, 0, 0, 1):
+                        lib.sdv_attention_backward_tensor_cores(on)
+                        read[on].append(time_ms(torch, bwd))
+                finally:
+                    lib.sdv_attention_backward_tensor_cores(1)
+                ms = min(read[1])
+                scaled += (f"; in turns: tensor cores {ms:.4f} ms, FMA path "
+                           f"{min(read[0]):.4f} ms")
+            else:
+                ms = time_ms(torch, bwd)
+            del want
+            pms = time_ms(torch, lambda: flash_attention_backward_reference(
+                q, k, v, o, do))
+            qh, kh, vh = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            oh = F.scaled_dot_product_attention(qh, kh, vh)
+            doh = do.transpose(1, 2).contiguous()
+            lms = time_ms(torch, lambda: torch.autograd.grad(
+                oh, (qh, kh, vh), doh, retain_graph=True))
+            record("flash_attention_bwd", (b, sq, sk, h, d), name + scaled,
+                   dt, err, ms, pms, lms, attn_bwd_bound(b, sq, sk, h, d, eb))
+            del q, k, v, do, o, qh, kh, vh, oh, doh
+        for shape, eps, silu in BWD_GN_SHAPES + (
+                TRAIN_FP32_GN_SHAPES if dt == torch.float32 else []):
+            x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
+            dy = torch.randn(shape, device=dev, generator=g).to(dt)
+            scale, bias = (torch.randn(shape[1], device=dev,
+                                       generator=g).to(dt) for _ in range(2))
+            name = (f"groupnorm bwd {dn} {shape} eps={eps} silu={silu} "
+                    f"weights {dn}")
+            args = (x, scale, bias, dy, 32, eps, silu)
+            err = max(compare(torch, f"{name} {t}", got, want, dn)
+                      for t, got, want in zip(
+                          ("dx", "dscale", "dbias"),
+                          groupnorm_silu_backward(*args),
+                          groupnorm_backward_reference(*args)))
+            ms = time_ms(torch, lambda: groupnorm_silu_backward(*args))
+            pms = time_ms(torch, lambda: groupnorm_backward_reference(*args))
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (x, scale, bias)]
+            y = F.group_norm(leaves[0], 32, leaves[1], leaves[2], eps)
+            y = F.silu(y) if silu else y
+            lms = time_ms(torch, lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True))
+            record("groupnorm_silu_bwd", (shape, eps, silu), name, dt, err,
+                   ms, pms, lms, gn_bwd_bound(shape, silu, eb))
+            del x, dy, leaves, y
         torch.cuda.empty_cache()
     for group, (_, sums) in groups.items():
         for name, f in sums.items():
@@ -784,17 +1026,23 @@ def sd1_bundle(torch):
     return models
 
 
-def counted_run(torch, label: str, run):
+def counted_run(torch, label: str, run, backward: bool = False):
     """Call ``run()`` with every launch counter and plain-version counter
     set to 0 just before, read them just after, and fail unless both
-    kernels launched, no plain version ran, and phase 3 checks every
+    forward kernels launched (and with ``backward`` both backward kernels
+    too), no plain version or plain backward ran, and phase 3 checks every
     (shape, dtype) key launched.  -> ({kernel: launches}, wall seconds)."""
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference)
+        flash_attention, flash_attention_backward,
+        flash_attention_backward_reference, flash_attention_reference)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
-        fused_groupnorm_silu, groupnorm_reference)
-    counters = (flash_attention, fused_groupnorm_silu)
-    plains = (flash_attention_reference, groupnorm_reference)
+        fused_groupnorm_silu, groupnorm_backward_reference,
+        groupnorm_reference, groupnorm_silu_backward)
+    counters = (flash_attention, fused_groupnorm_silu,
+                flash_attention_backward, groupnorm_silu_backward)
+    plains = (flash_attention_reference, groupnorm_reference,
+              flash_attention_backward_reference,
+              groupnorm_backward_reference)
     for f in counters:
         f.launches = 0
         f.by_shape.clear()
@@ -812,16 +1060,29 @@ def counted_run(torch, label: str, run):
     for name, counts in by_shape.items():
         for key, n in sorted(counts.items(), key=str):
             print(f"{label}: {name} {key}: {n} launches")
-    if min(launches.values()) <= 0 or max(plain_calls.values()) != 0:
+    required = counters if backward else counters[:2]
+    if (min(f.launches for f in required) <= 0
+            or max(plain_calls.values()) != 0):
         raise AssertionError(f"{label} did not run on the kernels alone")
-    bf16 = torch.bfloat16
-    checked = ({(*s, bf16) for s in ATTN_SHAPES + FAMILY_ATTN_SHAPES
-                + EDIT_ATTN_SHAPES + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
-                + SERVE_ATTN_SHAPES}
-               | {(*c, bf16, bf16) for c in GN_SHAPES + FAMILY_GN_SHAPES
-                  + EDIT_GN_SHAPES + SERVE_GN_SHAPES})
-    unchecked = [k for counts in by_shape.values() for k in counts
-                 if k not in checked]
+    bf16, fp32 = torch.bfloat16, torch.float32
+    fp32_attn = {(*s, fp32) for s in TRAIN_FP32_ATTN_SHAPES}
+    fp32_gn = {(*c, fp32, fp32) for c in TRAIN_FP32_GN_SHAPES}
+    checked = {
+        "flash_attention": {(*s, bf16) for s in ATTN_SHAPES
+                            + FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
+                            + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
+                            + SERVE_ATTN_SHAPES + TRAIN_ATTN_SHAPES}
+        | fp32_attn,
+        "fused_groupnorm_silu": {(*c, bf16, bf16) for c in GN_SHAPES
+                                 + FAMILY_GN_SHAPES + EDIT_GN_SHAPES
+                                 + SERVE_GN_SHAPES + TRAIN_GN_SHAPES}
+        | fp32_gn,
+        "flash_attention_backward": {(*s, dt) for s in BWD_ATTN_SHAPES
+                                     for dt in (bf16, fp32)} | fp32_attn,
+        "groupnorm_silu_backward": {(*c, dt, dt) for c in BWD_GN_SHAPES
+                                    for dt in (bf16, fp32)} | fp32_gn}
+    unchecked = [(name, k) for name, counts in by_shape.items()
+                 for k in counts if k not in checked[name]]
     if unchecked:
         raise AssertionError(f"phase 3 does not check the launches of "
                              f"{label} at {unchecked}")
@@ -2569,6 +2830,255 @@ def phase_serve(torch, models, frames, main_fps):
     return out
 
 
+def grads_of(trainer, *batch) -> list:
+    """The fp32 masters' gradients of one ``compute_gradients`` call,
+    taken off the masters (which are left without gradients)."""
+    trainer.compute_gradients(*batch)
+    grads = [p.grad for p in trainer.weights.parameters()]
+    for p in trainer.weights.parameters():
+        p.grad = None
+    return grads
+
+
+def phase_train(torch, models):
+    """Training on phase 5's bundle through both kernels' backward kernels;
+    -> {run: {kernel: launches}}."""
+    import copy
+    import dataclasses
+    import io
+
+    from stable_diffusion_videos_tpu_torch.models.lora_file import apply_lora
+    from stable_diffusion_videos_tpu_torch.ops import build
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    from stable_diffusion_videos_tpu_torch.training import (
+        LCMDistiller, LoRATrainer, TrainConfig, UNetTrainer, VAETrainer,
+        make_structured_dataset)
+    from stable_diffusion_videos_tpu_torch.training.trainer import \
+        draw_t_and_noise
+    dev, line, out = torch.device("cuda"), gpu_line(), {}
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    # the remat and resume checks compare runs bit for bit: cuDNN's
+    # deterministic algorithms (the two backward kernels use no atomics)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    images, prompts = make_structured_dataset(512)
+    engine, held = Engine(models, dev), {}
+
+    def encode():
+        with torch.no_grad():
+            held.update(lat=engine.encode_image(images[:2]),
+                        ctx=engine.embed_text(prompts[:2]).float(),
+                        uncond=engine.embed_text([""]).float())
+    out["encode"], _ = counted_run(
+        torch, "train: the encoder's latents of two structured images",
+        encode)
+    lat, ctx, uncond = held["lat"], held["ctx"], held["uncond"]
+
+    # 1. the UNet trainer: 3 steps with EMA, seconds and peak memory
+    cfg = TrainConfig(learning_rate=1e-4, ema_decay=0.999)
+    trainer = UNetTrainer(models, cfg, device=dev)
+    start = [p.detach().clone() for p in trainer.weights.parameters()[:4]]
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+
+    def steps():
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(trainer.step(lat, ctx))
+            secs.append(time.perf_counter() - t0)
+    out["unet_3_steps"], _ = counted_run(
+        torch, "train: UNet, 3 steps at batch 2", steps, backward=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = sum(not torch.equal(a, b) for a, b in zip(
+        start, trainer.weights.parameters()[:4]))
+    print(f"train: UNet losses {[f'{x:.5f}' for x in losses]}, step seconds "
+          f"{[f'{x:.4f}' for x in secs]}: {min(secs[1:]):.4f} s a warm step "
+          f"(batch 2, 64² latents, bf16 working copy, fp32 masters, EMA), "
+          f"peak {peak:.2f} GiB on {line}")
+    if not (np.isfinite(losses).all() and moved == len(start)):
+        raise AssertionError(f"train: losses {losses}, {moved} of "
+                             f"{len(start)} probed masters moved")
+    # warm steps with the attention backward's bf16 calls at D <= 80 on the
+    # tensor cores and on the FMA path, in turns (3 steps a turn), least of
+    # each
+    lib, read = build.library(), {1: [], 0: []}
+    try:
+        for on in (1, 0, 0, 1):
+            lib.sdv_attention_backward_tensor_cores(on)
+            for _ in range(3):
+                t0 = time.perf_counter()
+                trainer.step(lat, ctx)
+                read[on].append(time.perf_counter() - t0)
+    finally:
+        lib.sdv_attention_backward_tensor_cores(1)
+    print(f"train: warm UNet steps in turns (tensor cores, FMA, FMA, tensor "
+          f"cores): attention backward on the tensor cores "
+          f"{min(read[1]):.4f} s, on the FMA path {min(read[0]):.4f} s "
+          f"(all {[f'{x:.4f}' for x in read[1]]} / "
+          f"{[f'{x:.4f}' for x in read[0]]})")
+    batch = (lat, ctx, *draw_t_and_noise(
+        torch.Generator(dev).manual_seed(5), lat, 1000))
+    t0 = time.perf_counter()
+    plain = grads_of(trainer, *batch)
+    plain_s = time.perf_counter() - t0
+    trainer.config = dataclasses.replace(cfg, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    remat = grads_of(trainer, *batch)
+    remat_s = time.perf_counter() - t0
+    remat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.config = cfg
+    same = all(torch.equal(a, b) for a, b in zip(plain, remat))
+    print(f"train: remat gradients bit-equal to plain: {same} (gradients "
+          f"{plain_s:.4f} s plain, {remat_s:.4f} s with remat, peak "
+          f"{remat_peak:.2f} GiB with remat)")
+    del plain, remat
+    if not same:
+        raise AssertionError("train: remat changed the gradients")
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(buf)
+    save_s = time.perf_counter() - t0
+    trainer.step(lat, ctx)
+    after = [p.detach().clone() for p in trainer.weights.parameters()]
+    after_ema = [e.clone() for e in trainer.ema_params]
+    buf.seek(0)
+    trainer.restore_checkpoint(buf)
+    trainer.step(lat, ctx)
+    resumed = (all(torch.equal(a, p) for a, p in zip(
+        after, trainer.weights.parameters())) and all(
+        torch.equal(a, e) for a, e in zip(after_ema, trainer.ema_params)))
+    print(f"train: checkpoint of {buf.tell() / 2 ** 30:.2f} GiB saved in "
+          f"{save_s:.2f} s; the step after its restore bit-equal to the "
+          f"step without it: {resumed}")
+    del trainer, after, after_ema, buf
+    torch.cuda.empty_cache()
+    if not resumed:
+        raise AssertionError("train: the restored run diverged")
+
+    # 2. one fp32 step at 32² latents, batch 1: the card against the CPU
+    rng = np.random.default_rng(17)
+    width = models.unet_config.cross_attention_dim
+    small = (rng.standard_normal((1, 32, 32, 4), dtype=np.float32) * 0.5,
+             rng.standard_normal((1, 77, width), dtype=np.float32) * 0.3,
+             np.array([500]),
+             rng.standard_normal((1, 32, 32, 4), dtype=np.float32))
+    unet32 = copy.deepcopy(models.unet).float()
+    card = UNetTrainer(dataclasses.replace(models, unet=unet32), device=dev)
+    out["unet_fp32_32"], _ = counted_run(
+        torch, "train: UNet fp32 gradient at 32² latents, batch 1",
+        lambda: held.update(fp32=grads_of(card, *small)), backward=True)
+    g_card = [g.cpu() for g in held.pop("fp32")]
+    del card, unet32
+    torch.cuda.empty_cache()
+    host = UNetTrainer(dataclasses.replace(
+        models, unet=copy.deepcopy(models.unet).cpu().float()),
+        device=torch.device("cpu"))
+    t0 = time.perf_counter()
+    g_host = grads_of(host, *small)
+    host_s = time.perf_counter() - t0
+    names = [n for n, _ in host.weights.master.named_parameters()]
+    del host
+    dot = sum(float((a.double() * b.double()).sum())
+              for a, b in zip(g_card, g_host))
+    norms = [sum(float(g.double().square().sum()) for g in gs) ** 0.5
+             for gs in (g_card, g_host)]
+    cosine = dot / (norms[0] * norms[1])
+    top = max(float(g.abs().max()) for g in g_host)
+    err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_host))
+    def rel_l2(a, b) -> float:
+        """A leaf's relative L2 error (a leaf whose CPU gradient is all
+        zeros must be all zeros on the card too)."""
+        if not bool(b.any()):
+            return float("inf") if bool(a.any()) else 0.0
+        return float((a.double() - b.double()).norm() / b.double().norm())
+    leaf = sorted(((rel_l2(a, b), name)
+                   for name, a, b in zip(names, g_card, g_host)),
+                  reverse=True)
+    print(f"train: fp32 UNet gradient ({sum(g.numel() for g in g_host)} "
+          f"values), card against CPU: "
+          f"cosine {cosine:.9f}, max error {err / top:.3e} of the largest "
+          f"({top:.3e}); worst leaves by relative L2 "
+          f"{[(n, f'{r:.3e}') for r, n in leaf[:3]]}, median "
+          f"{leaf[len(leaf) // 2][0]:.3e} of {len(leaf)}; bounds "
+          f"{TRAIN_GRAD_TOL}; CPU {host_s:.1f} s")
+    del g_card, g_host
+    if cosine < TRAIN_GRAD_TOL["cosine"] or \
+            err / top > TRAIN_GRAD_TOL["max_err"] or \
+            leaf[0][0] > TRAIN_GRAD_TOL["leaf_rel_l2"]:
+        raise AssertionError("train: the card's gradient is not the CPU's")
+
+    # 3. LoRA rank 8: 3 steps, the base untouched, the .npz merged and run
+    base = [v.clone() for v in models.unet.state_dict().values()]
+    lora = LoRATrainer(models, rank=8, learning_rate=1e-3, device=dev)
+    lora_losses = []
+    out["lora_3_steps"], lora_s = counted_run(
+        torch, "train: LoRA rank 8, 3 steps at batch 2",
+        lambda: lora_losses.extend(lora.step(lat, ctx) for _ in range(3)),
+        backward=True)
+    kept = all(torch.equal(a, b) for a, b in zip(
+        base, models.unet.state_dict().values()))
+    path = WORK / "train_lora.npz"
+    lora.save_lora(path)
+    merged = apply_lora(models, path)
+    changed = sum(not torch.equal(a, b) for a, b in zip(
+        merged.unet.state_dict().values(), base))
+    print(f"train: LoRA losses {[f'{x:.5f}' for x in lora_losses]} in "
+          f"{lora_s:.2f} s; base bit-unchanged: {kept}; .npz of "
+          f"{path.stat().st_size / 1e6:.2f} MB, {changed} weights changed by "
+          f"the merge")
+    del lora, base
+    if not (kept and changed > 0 and np.isfinite(lora_losses).all()):
+        raise AssertionError("train: LoRA run failed its checks")
+    pipe = StableDiffusionWalkPipeline(merged, device=dev)
+    cond, uncond8, noise = dispatch_inputs(torch, pipe)
+    out["lora_dispatch"], _ = counted_run(
+        torch, "train: 8-frame dispatch with the trained LoRA merged",
+        lambda: check_frames("train: LoRA-merged dispatch",
+                             pipe.engine.denoise_frames(
+                                 cond, uncond8, noise,
+                                 num_inference_steps=50, guidance_scale=7.5,
+                                 output_dtype="float32")))
+    del pipe, merged
+    path.unlink()
+    torch.cuda.empty_cache()
+
+    # 4. LCM distillation: 2 steps at batch 2
+    distiller = LCMDistiller(models, device=dev)
+    lcm_losses = []
+    out["lcm_2_steps"], lcm_s = counted_run(
+        torch, "train: LCM distillation, 2 steps at batch 2",
+        lambda: lcm_losses.extend(distiller.step(lat, ctx, uncond)
+                                  for _ in range(2)), backward=True)
+    print(f"train: LCM losses {[f'{x:.6f}' for x in lcm_losses]} in "
+          f"{lcm_s:.2f} s")
+    del distiller
+    torch.cuda.empty_cache()
+    if not np.isfinite(lcm_losses).all():
+        raise AssertionError("train: LCM losses not finite")
+
+    # 5. the VAE: 2 steps at 512², batch 1
+    vae = VAETrainer(models, device=dev)
+    recs = []
+
+    def vae_run():
+        recs.extend(vae.step(images[:1]) for _ in range(2))
+        recs.append(vae.recon_psnr(images[:1]))
+    out["vae_2_steps"], vae_s = counted_run(
+        torch, "train: VAE, 2 steps at 512², batch 1", vae_run,
+        backward=True)
+    print(f"train: VAE reconstruction MSE {recs[0]:.5f}, {recs[1]:.5f}, "
+          f"PSNR {recs[2]:.3f} dB, in {vae_s:.2f} s")
+    del vae
+    torch.cuda.empty_cache()
+    cudnn.deterministic, cudnn.benchmark = saved
+    if not np.isfinite(recs).all():
+        raise AssertionError("train: VAE run not finite")
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2589,11 +3099,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
     summary, launches, fewstep, distilled, families, edit, addons, post, \
-        serve = (None,) * 9
+        serve, train = (None,) * 10
     frames, xl_parts, main_fps = None, None, None
     models = (sd1_bundle(torch)
               if {"main", "fewstep", "distilled", "edit", "addons", "post",
-                  "serve"} & set(phases) else None)
+                  "serve", "train"} & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -2619,8 +3129,10 @@ def main():
             addons = phase_addons(torch, models, frames)
         elif name == "post":
             post = phase_post(torch, models, frames)
-        else:
+        elif name == "serve":
             serve = phase_serve(torch, models, frames, main_fps)
+        else:
+            train = phase_train(torch, models)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -2638,8 +3150,12 @@ def main():
          "replaces": "stable_diffusion_videos_tpu/ops/groupnorm.py:74",
          "launches": launches["fused_groupnorm_silu"]}]
     wrapper = {"flash_attention": "flash_attention",
-               "groupnorm_silu": "fused_groupnorm_silu"}
+               "groupnorm_silu": "fused_groupnorm_silu",
+               "flash_attention_bwd": "flash_attention_backward",
+               "groupnorm_silu_bwd": "groupnorm_silu_backward"}
     for k in kernels:
+        k["launches_train"] = {run: counts[wrapper[k["name"]]]
+                               for run, counts in train.items()}
         k["launches_fewstep"] = {run: counts[wrapper[k["name"]]]
                                  for run, counts in fewstep.items()}
         k["launches_distilled"] = {run: counts[wrapper[k["name"]]]
@@ -2654,6 +3170,23 @@ def main():
                               for run, counts in post.items()}
         k["launches_serve"] = {run: counts[wrapper[k["name"]]]
                                for run, counts in serve.items()}
+    # the backward kernels have no Pallas counterpart: the JAX package's
+    # trainers differentiate its XLA routes
+    for name, source, replaces in (
+            ("flash_attention_bwd", "attention_backward.cu",
+             "XLA autodiff of stable_diffusion_videos_tpu/ops/"
+             "attention.py:79 (xla_attention)"),
+            ("groupnorm_silu_bwd", "groupnorm_backward.cu",
+             "XLA autodiff of stable_diffusion_videos_tpu/models/"
+             "layers.py:96 (flax nn.GroupNorm)")):
+        runs = {run: counts[wrapper[name]] for run, counts in train.items()}
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "stable_diffusion_videos_tpu_torch/csrc/"
+                                  + source,
+                        "replaces": replaces,
+                        "launches": sum(runs.values()),
+                        "launches_train": runs})
+    for k in kernels:
         s = summary[k["name"]]
         k.update(max_abs_err=s["err"], ms=s["ms"], plain_ms=s["plain_ms"],
                  bound_ms=s["bound_ms"],

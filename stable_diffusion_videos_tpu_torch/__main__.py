@@ -80,8 +80,8 @@ def _add_common(ap):
                          "sampler-noise flicker between frames")
     ap.add_argument("--lora", action="append", default=None,
                     metavar="PATH[:SCALE]",
-                    help="kohya/diffusers LoRA .safetensors merged into the "
-                         "model; repeatable")
+                    help="kohya/diffusers LoRA .safetensors, or the LoRA "
+                         "trainer's .npz, merged into the model; repeatable")
     ap.add_argument("--textual-inversion", action="append", default=None,
                     metavar="PATH[:TOKEN]",
                     help="textual-inversion embedding file (diffusers / "

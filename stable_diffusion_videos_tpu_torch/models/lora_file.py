@@ -15,8 +15,9 @@ The merge runs once, on the host's side of the weights: ``W + scale ·
 copy of each touched module tree (``weights.shared_copy``), so the base
 bundle is untouched and the denoise path runs the same kernels as before.
 Adapters: Linear, 1x1 convolution (stored either way) and LoCon 3x3
-(``down (r, in, 3, 3)``, ``up (out, r, 1, 1)``).  The trainer's ``.npz``
-format belongs to the training package, which is not ported.
+(``down (r, in, 3, 3)``, ``up (out, r, 1, 1)``).  A ``.npz`` is the LoRA
+trainer's own format (``training/lora.py``, the JAX package's format),
+merged into the UNet at ``scale · alpha / rank``.
 """
 
 from __future__ import annotations
@@ -251,9 +252,11 @@ def apply_lora(models, path, scale: float = 1.0):
     """Merge one LoRA file into a bundle -> a new ``SDModels`` whose touched
     modules are copies (the base bundle is untouched)."""
     if str(path).endswith(".npz"):
-        raise NotImplementedError(
-            "the LoRA trainer's .npz format comes with training/lora.py, "
-            "which the PyTorch package does not have yet (ROADMAP item 27)")
+        from ..training.lora import LoRATrainer, merge_lora
+        lora, rank, alpha = LoRATrainer.load_lora(path)
+        unet = merge_lora(models.unet, lora, scale * alpha / rank)
+        logger.info("merged trainer lora %s (rank %d) into unet", path, rank)
+        return dataclasses.replace(models, unet=unet)
     groups = parse_lora_file(path)
     changes, total = {}, 0
     for grp, deltas in groups.items():

@@ -112,11 +112,22 @@ def _build_and_load() -> ctypes.CDLL:
     lib.sdv_groupnorm_silu.argtypes = [_P, _P, _P, _I, _P, _I, _I, _LL, _I,
                                        _F, _I, _I, _P]
     lib.sdv_groupnorm_silu.restype = _I
+    lib.sdv_flash_attention_backward.argtypes = [_P] * 10 + [
+        _I, _I, _I, _I, _I, _F, _I, _P]
+    lib.sdv_flash_attention_backward.restype = _I
+    lib.sdv_attention_backward_tensor_cores.argtypes = [_I]
+    lib.sdv_attention_backward_tensor_cores.restype = _I
+    lib.sdv_groupnorm_backward_scratch.argtypes = [_I, _I, _LL, _I]
+    lib.sdv_groupnorm_backward_scratch.restype = _LL
+    lib.sdv_groupnorm_silu_backward.argtypes = [_P] * 8 + [
+        _I, _I, _LL, _I, _F, _I, _I, _P]
+    lib.sdv_groupnorm_silu_backward.restype = _I
     lib.sdv_error_string.argtypes = [_I]
     lib.sdv_error_string.restype = ctypes.c_char_p
     # what every launch needs once (attributes, the tensor-map encoder),
     # here under the lock, so that no launch from any thread sets it up
-    for prepare in (lib.sdv_prepare_attention, lib.sdv_prepare_groupnorm):
+    for prepare in (lib.sdv_prepare_attention, lib.sdv_prepare_groupnorm,
+                    lib.sdv_prepare_attention_backward):
         prepare.argtypes = []
         prepare.restype = _I
         err = prepare()

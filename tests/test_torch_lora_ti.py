@@ -208,8 +208,30 @@ def test_unmatched_and_trainer_files_are_refused(sd1_bundles, tmp_path):
                                                            np.float32)})
     with pytest.raises(ValueError, match="no LoRA module matched"):
         apply_lora(pm, path)
-    with pytest.raises(NotImplementedError, match="item 27"):
-        apply_lora(pm, tmp_path / "trainer.npz")
+    # the LoRA trainer's .npz (flax paths, A (in, r), B (r, out), rank and
+    # alpha) merges as W + scale·alpha/rank·(A @ B)ᵀ into its Linears alone
+    from stable_diffusion_videos_tpu_torch.training.lora import lora_targets
+    rng = np.random.default_rng(3)
+    targets = lora_targets(pm.unet)
+    arrs = {}
+    for flax_path, name in targets.items():
+        lin = pm.unet.get_submodule(name)
+        arrs[f"{flax_path}::a"] = rng.standard_normal(
+            (lin.in_features, 2), dtype=np.float32)
+        arrs[f"{flax_path}::b"] = rng.standard_normal(
+            (2, lin.out_features), dtype=np.float32)
+    np.savez(tmp_path / "trainer.npz", __rank__=2, __alpha__=1.0, **arrs)
+    merged = apply_lora(pm, tmp_path / "trainer.npz", scale=0.5)
+    touched = {f"{n}.weight": p for p, n in targets.items()}
+    for k, w in merged.unet.state_dict().items():
+        base = pm.unet.state_dict()[k]
+        if k not in touched:
+            assert torch.equal(w, base), k
+            continue
+        a, b = arrs[f"{touched[k]}::a"], arrs[f"{touched[k]}::b"]
+        torch.testing.assert_close(
+            w, base + torch.from_numpy((a @ b).T * 0.25),
+            atol=1e-6, rtol=1e-6)
 
 
 def ti_file(tmp_path, fmt: str, widths) -> tuple:

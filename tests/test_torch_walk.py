@@ -137,8 +137,9 @@ def test_port_never_imports_jax(tmp_path):
     encode, a walk with a ControlNet, an IP-Adapter and prompt
     weighting on a bundle with a LoRA and a textual-inversion file merged,
     a walk with the safety checker, Real-ESRGAN upsampling, ToMe and FreeU,
-    and ``generate_images`` import neither jax nor the JAX package, not
-    even its host-only modules."""
+    ``generate_images``, and a step of each trainer of the training package
+    with a LoRA ``.npz`` saved and merged, import neither jax nor the JAX
+    package, not even its host-only modules."""
     from safetensors.numpy import save_file
     wav = click_track(tmp_path / "beat.wav")
     rng = np.random.default_rng(0)
@@ -225,6 +226,17 @@ def test_port_never_imports_jax(tmp_path):
         "assert len(image_generation.generate_images(s, 'a', batch_size=2, "
         "num_inference_steps=2, height=32, width=32, upsample=True, "
         f"output_dir={str(tmp_path)!r}, name='g')) == 2\n"
+        "from stable_diffusion_videos_tpu_torch import training\n"
+        "cpu, tm = torch.device('cpu'), SDModels.tiny()\n"
+        "lat, ctx = torch.randn(2, 8, 8, 4), torch.randn(2, 7, 32)\n"
+        "training.UNetTrainer(tm, device=cpu).step(lat, ctx)\n"
+        "lt = training.LoRATrainer(tm, rank=2, device=cpu)\n"
+        "lt.step(lat, ctx)\n"
+        f"lt.save_lora({str(tmp_path / 'trained.npz')!r})\n"
+        f"lora_file.apply_lora(tm, {str(tmp_path / 'trained.npz')!r})\n"
+        "training.VAETrainer(tm, device=cpu).step(torch.rand(1, 16, 16, 3))\n"
+        "training.LCMDistiller(tm, device=cpu).step(lat, ctx, ctx[:1])\n"
+        "training.make_structured_dataset(8)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
