@@ -150,8 +150,10 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    batch 2 and the fp32 UNet at 32²; backward rows in bf16 and fp32 beside
    the plain backward, autograd through the library calls and the bound;
    the bf16 attention rows also held to each gradient's own scale by a
-   check that must reject three planted faults, and at D <= 80 the FMA
-   path checked and timed beside the tensor cores).
+   check that must reject three planted faults, each row's route named
+   (fused or materialised, from the wrapper's route counters), and the FMA
+   path checked and timed beside the tensor cores; every GroupNorm
+   backward call in two kernel launches).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record (the two forward kernels and the two backward
@@ -198,18 +200,19 @@ INPAINT_KEPT = dict(keep_all_max=1 / 255, half_mean=0.01)
 ATTN_SCALED = dict(max_ratio=0.05, rel_l2=1e-2)
 # the bf16 attention backward is held to each gradient's own scale too: the
 # flat 2e-2 is about a third of dq's, dk's and dv's typical size at S=4096.
-# dq, dk and dv are bf16 roundings of fp32 sums (the tensor-core path also
-# rounds P and dS to bf16 before their products): about 2e-3 of relative L2
+# dq, dk and dv are bf16 roundings of fp32 sums (the tensor-core routes also
+# round P and dS to bf16 before their products): about 2e-3 of relative L2
 # and 1e-2 of the largest element.  At every row the check must reject
 # three planted faults, each at 2.5e-2 or more: the last key tile dropped
 # from dq, the last q tile dropped from dk and from dv, and dS = P∘dP with
 # its D_i term left out (dq and dk).
 ATTN_BWD_SCALED = dict(max_ratio=0.02, rel_l2=1e-2)
-# (q rows, keys) of the backward's tiles by padded depth, as
-# csrc/attention_backward.cu has them (the tensor-core path's 64×64 at D <=
-# 80, the FMA path's BwdCfg): a planted fault drops one of the kernel's tiles
-ATTN_BWD_TILES = {48: (64, 64), 64: (64, 64), 80: (64, 64), 160: (64, 32),
-                  512: (32, 16)}
+# (q rows, keys) of the tiles the bf16 routes sum over, as
+# csrc/attention_backward.cu has them: the fused route's dk/dv kernel steps
+# through q in tiles of 64 rows and its dq kernel through the keys in tiles
+# of 64; the materialised route's GEMM steps its k loop (q rows for dk and
+# dv, keys for dq) in tiles of 64.  A planted fault drops one such tile.
+ATTN_BWD_TILES = {"fused": (64, 64), "materialised": (64, 64)}
 # One H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W):
 # operations/s by element size (bf16 on the tensor cores, fp32 on the FMA
 # units) and device-memory bytes/s.  bound = max(operations/peak,
@@ -482,6 +485,27 @@ def phase_env(torch):
 # Hopper instructions the kernels must contain: warpgroup MMA, TMA tensor
 # loads, mbarrier syncs, register reallocation and cluster barriers
 SASS_NEEDED = ("HGMMA", "UTMALDG", "SYNCS", "USETMAXREG", "UCGABAR_ARV")
+# and, function by function, the backward kernels: each bf16 attention
+# backward kernel on wgmma fed by TMA tensor loads, every instantiation of
+# the GroupNorm backward on cluster barriers
+BWD_SASS_NEEDED = {"bwd_dkdv_wgmma": ("HGMMA", "UTMALDG"),
+                   "bwd_dq_wgmma": ("HGMMA", "UTMALDG"),
+                   "bwd_scores_wgmma": ("HGMMA", "UTMALDG"),
+                   "bwd_gemm_wgmma": ("HGMMA", "UTMALDG"),
+                   "gn_bwd_kernel": ("UCGABAR_ARV",)}
+
+
+def sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` output cut into {function name: its SASS}."""
+    functions, name = {}, None
+    for line in sass.splitlines():
+        text = line.strip()
+        if text.startswith("Function : "):
+            name = text[len("Function : "):]
+            functions[name] = []
+        elif name is not None:
+            functions[name].append(text)
+    return {name: "\n".join(body) for name, body in functions.items()}
 
 
 def phase_build():
@@ -502,6 +526,16 @@ def phase_build():
     print(f"sass: {counts}")
     if min(counts.values()) == 0:
         raise AssertionError(f"the kernels lack Hopper instructions: {counts}")
+    # the backward kernels themselves, function by function
+    functions = sass_functions(sass)
+    for kernel, needed in BWD_SASS_NEEDED.items():
+        found = {name: {op: body.count(op) for op in needed}
+                 for name, body in functions.items() if kernel in name}
+        for name, ops in found.items():
+            print(f"sass: {kernel} {name[:60]}: {ops}")
+        if not found or min(n for ops in found.values()
+                            for n in ops.values()) == 0:
+            raise AssertionError(f"{kernel} lacks {needed}: {found}")
 
 
 def time_ms(torch, fn, warmup: int = 2, window_ms: float = 20.0) -> float:
@@ -549,6 +583,28 @@ def queued_ms(torch, fn, reps: int) -> float:
         cycles *= 2
 
 
+def kernel_breakdown(torch, fn, reps: int = 5) -> str:
+    """Device ms a call of each kernel ``fn`` launches (torch.profiler over
+    ``reps`` calls after a warm one), longest first."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            # "void (anonymous namespace)::bwd_dq_wgmma<...>(...)" -> its name
+            m = re.search(r"(\w+)[<(]", e.key.split("::", 1)[-1])
+            parts.append((e.device_time_total / reps / 1e3,
+                          m.group(1) if m else e.key))
+    return ", ".join(f"{name} {ms:.4f}" for ms, name in sorted(parts)[::-1])
+
+
 def compare(torch, name, out, ref, dtype_name) -> float:
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -588,14 +644,14 @@ def check_attn_scaled(name, out, q, k, v, ref, reference) -> str:
     return text
 
 
-def attn_bwd_faults(torch, q, k, v, o, do) -> list:
+def attn_bwd_faults(torch, route, q, k, v, o, do) -> list:
     """The plain backward with one planted fault each, as (fault, index of
     the gradient it changes in (dq, dk, dv), that gradient in q's dtype):
-    the last key tile dropped from dq, the last q tile dropped from dk and
-    from dv, and dS without its D_i term in dq and dk."""
+    the last key tile of ``route`` dropped from dq, its last q tile dropped
+    from dk and from dv, and dS without its D_i term in dq and dk."""
     sq, d, sk = q.shape[1], q.shape[3], k.shape[1]
     scale = d ** -0.5
-    bq, bk = ATTN_BWD_TILES[next(p for p in ATTN_BWD_TILES if d <= p)]
+    bq, bk = ATTN_BWD_TILES[route]
     kk, qk = (sk - 1) // bk * bk, (sq - 1) // bq * bq
     qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
     p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale, -1)
@@ -705,7 +761,8 @@ def phase_kernels(torch):
 
     from stable_diffusion_videos_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_backward,
-        flash_attention_backward_reference, flash_attention_reference)
+        flash_attention_backward_reference, flash_attention_reference,
+        flash_attention_with_lse)
     from stable_diffusion_videos_tpu_torch.ops.groupnorm import (
         fused_groupnorm_silu, groupnorm_backward_reference,
         groupnorm_reference, groupnorm_silu_backward)
@@ -714,9 +771,11 @@ def phase_kernels(torch):
     g = torch.Generator(device=dev).manual_seed(0)
     lib = build.library()
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                          bound_ms=0.0, bound_by={})
+                          bound_ms=0.0, bound_by={}, rows={})
                for name in ("flash_attention", "groupnorm_silu",
                             "flash_attention_bwd", "groupnorm_silu_bwd")}
+    # the backward rows' device time, queued behind a device sleep
+    queued_sum = {"flash_attention_bwd": 0.0, "groupnorm_silu_bwd": 0.0}
     # the same sums over the rows phase 8's families and phase 9's edit
     # paths add
     groups = {
@@ -736,6 +795,7 @@ def phase_kernels(torch):
         print(f"{text}: max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
               f"{pms:.4f} ms library {lms:.4f} ms bound {b_ms:.4f} ms "
               f"({b_by}) share of bound {b_ms / ms:.3f}")
+        summary[name]["rows"][(key, dt)] = ms
         s = summary[name]
         s["err"] = max(s["err"], err)
         if dt == torch.bfloat16:
@@ -844,32 +904,42 @@ def phase_kernels(torch):
                    lms, gn_bound(shape, silu, eb))
             del x
         torch.cuda.empty_cache()
-        # the backward kernels against the plain backwards; the library is
-        # autograd through scaled_dot_product_attention, or group_norm+silu
+        # the backward kernels against the plain backwards, given the
+        # forward's saved log-sum-exp as a gradient's backward is; the
+        # library is autograd through scaled_dot_product_attention, or
+        # group_norm+silu
         for b, sq, sk, h, d in BWD_ATTN_SHAPES + (
                 TRAIN_FP32_ATTN_SHAPES if dt == torch.float32 else []):
             q, k, v = (torch.randn(b, s_, h, d, device=dev,
                                    generator=g).to(dt)
                        for s_ in (sq, sk, sk))
             do = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
-            o = flash_attention(q, k, v)
+            o, lse = flash_attention_with_lse(q, k, v)
             name = f"attn bwd {dn} B={b} Sq={sq} Sk={sk} H={h} D={d}"
-            got = flash_attention_backward(q, k, v, o, do)
+
+            def bwd():
+                return flash_attention_backward(q, k, v, o, do, None, lse)
+            routes = flash_attention_backward.by_route.copy()
+            got = bwd()
+            ran = sorted((flash_attention_backward.by_route - routes).keys())
+            if (dt == torch.bfloat16) != bool(
+                    {"fused", "materialised"} & set(ran)):
+                raise AssertionError(f"{name} ran on {ran}")
+            name += f" (route {'+'.join(ran)})"
             want = flash_attention_backward_reference(q, k, v, o, do)
             err = max(compare(torch, f"{name} d{t}", out, ref, dn)
                       for t, out, ref in zip("qkv", got, want))
             scaled = ""
             if dt == torch.bfloat16:
+                route = "fused" if "fused" in ran else "materialised"
                 scaled = "; " + check_attn_bwd_scaled(
-                    name, got, want, attn_bwd_faults(torch, q, k, v, o, do))
+                    name, got, want,
+                    attn_bwd_faults(torch, route, q, k, v, o, do))
             del got
-
-            def bwd():
-                return flash_attention_backward(q, k, v, o, do)
-            if dt == torch.bfloat16 and d % 8 == 0 and d <= 80:
-                # these rows run on the tensor cores; the FMA path at the
-                # same shape, checked the same way and timed in turns
-                # (tensor cores, FMA, FMA, tensor cores), least of each
+            if dt == torch.bfloat16:
+                # the FMA path at the same shape, checked the same way and
+                # timed in turns (tensor cores, FMA, FMA, tensor cores),
+                # least of each
                 lib.sdv_attention_backward_tensor_cores(0)
                 try:
                     fma = bwd()
@@ -891,6 +961,14 @@ def phase_kernels(torch):
                            f"{min(read[0]):.4f} ms")
             else:
                 ms = time_ms(torch, bwd)
+            # the device's own time, calls queued behind a device sleep so
+            # that the wrapper's host time does not enter
+            dms = queued_ms(torch, bwd, int(min(100, max(5, 20.0 / ms))))
+            scaled += f"; device (queued) {dms:.4f} ms"
+            if dt == torch.bfloat16:
+                queued_sum["flash_attention_bwd"] += dms
+                scaled += (f"; kernels (device ms a call): "
+                           f"{kernel_breakdown(torch, bwd)}")
             del want
             pms = time_ms(torch, lambda: flash_attention_backward_reference(
                 q, k, v, o, do))
@@ -902,7 +980,7 @@ def phase_kernels(torch):
                 oh, (qh, kh, vh), doh, retain_graph=True))
             record("flash_attention_bwd", (b, sq, sk, h, d), name + scaled,
                    dt, err, ms, pms, lms, attn_bwd_bound(b, sq, sk, h, d, eb))
-            del q, k, v, do, o, qh, kh, vh, oh, doh
+            del q, k, v, do, o, lse, qh, kh, vh, oh, doh
         for shape, eps, silu in BWD_GN_SHAPES + (
                 TRAIN_FP32_GN_SHAPES if dt == torch.float32 else []):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
@@ -912,12 +990,25 @@ def phase_kernels(torch):
             name = (f"groupnorm bwd {dn} {shape} eps={eps} silu={silu} "
                     f"weights {dn}")
             args = (x, scale, bias, dy, 32, eps, silu)
-            err = max(compare(torch, f"{name} {t}", got, want, dn)
-                      for t, got, want in zip(
-                          ("dx", "dscale", "dbias"),
-                          groupnorm_silu_backward(*args),
+            before = lib.sdv_groupnorm_backward_launches()
+            got = groupnorm_silu_backward(*args)
+            n_launch = lib.sdv_groupnorm_backward_launches() - before
+            if n_launch != 2:
+                raise AssertionError(f"{name}: {n_launch} kernel launches, "
+                                     f"not 2")
+            err = max(compare(torch, f"{name} {t}", g_, want, dn)
+                      for t, g_, want in zip(
+                          ("dx", "dscale", "dbias"), got,
                           groupnorm_backward_reference(*args)))
+            del got
             ms = time_ms(torch, lambda: groupnorm_silu_backward(*args))
+            dms = queued_ms(torch, lambda: groupnorm_silu_backward(*args),
+                            int(min(100, max(5, 20.0 / ms))))
+            if dt == torch.bfloat16:
+                queued_sum["groupnorm_silu_bwd"] += dms
+                kernels = kernel_breakdown(
+                    torch, lambda: groupnorm_silu_backward(*args))
+                name += f" (kernels, device ms a call: {kernels})"
             pms = time_ms(torch, lambda: groupnorm_backward_reference(*args))
             leaves = [t.detach().requires_grad_(True)
                       for t in (x, scale, bias)]
@@ -925,10 +1016,17 @@ def phase_kernels(torch):
             y = F.silu(y) if silu else y
             lms = time_ms(torch, lambda: torch.autograd.grad(
                 y, leaves, dy, retain_graph=True))
-            record("groupnorm_silu_bwd", (shape, eps, silu), name, dt, err,
-                   ms, pms, lms, gn_bwd_bound(shape, silu, eb))
+            group_mb = np.prod(shape[1:]) // 32 * eb / 1e6
+            record("groupnorm_silu_bwd", (shape, eps, silu),
+                   f"{name} ({group_mb:.1f} MB a group, 2 launches; device "
+                   f"(queued) {dms:.4f} ms)", dt, err, ms, pms, lms,
+                   gn_bwd_bound(shape, silu, eb))
             del x, dy, leaves, y
         torch.cuda.empty_cache()
+    for name, total in queued_sum.items():
+        print(f"{name}: the bf16 rows' device time (queued) sums to "
+              f"{total:.4f} ms, against {summary[name]['ms']:.4f} ms "
+              f"back to back")
     for group, (_, sums) in groups.items():
         for name, f in sums.items():
             if not f["ms"]:
@@ -2840,9 +2938,10 @@ def grads_of(trainer, *batch) -> list:
     return grads
 
 
-def phase_train(torch, models):
-    """Training on phase 5's bundle through both kernels' backward kernels;
-    -> {run: {kernel: launches}}."""
+def phase_train(torch, models, summary=None):
+    """Training on phase 5's bundle through both kernels' backward kernels
+    (``summary``: phase 3's, for the backward kernels' ms a step); ->
+    {run: {kernel: launches}}."""
     import copy
     import dataclasses
     import io
@@ -2900,9 +2999,25 @@ def phase_train(torch, models):
     if not (np.isfinite(losses).all() and moved == len(start)):
         raise AssertionError(f"train: losses {losses}, {moved} of "
                              f"{len(start)} probed masters moved")
-    # warm steps with the attention backward's bf16 calls at D <= 80 on the
-    # tensor cores and on the FMA path, in turns (3 steps a turn), least of
-    # each
+    # the backward kernels' ms a step: the 3 steps' launches by shape times
+    # phase 3's ms at that shape (when phase 3 ran)
+    if summary is not None:
+        from stable_diffusion_videos_tpu_torch.ops.flash_attention import \
+            flash_attention_backward
+        from stable_diffusion_videos_tpu_torch.ops.groupnorm import \
+            groupnorm_silu_backward
+        per_step = {
+            name: sum(n * summary[name]["rows"][(key[:cut], key[cut])]
+                      for key, n in fn.by_shape.items()) / 3
+            for name, fn, cut in (
+                ("flash_attention_bwd", flash_attention_backward, 5),
+                ("groupnorm_silu_bwd", groupnorm_silu_backward, 3))}
+        print(f"train: a UNet step's backward kernels (phase 3's row ms × "
+              f"launches): attention backward "
+              f"{per_step['flash_attention_bwd']:.4f} ms, GroupNorm backward "
+              f"{per_step['groupnorm_silu_bwd']:.4f} ms")
+    # warm steps with the attention backward's bf16 calls on the tensor
+    # cores and on the FMA path, in turns (3 steps a turn), least of each
     lib, read = build.library(), {1: [], 0: []}
     try:
         for on in (1, 0, 0, 1):
@@ -3063,14 +3178,20 @@ def phase_train(torch, models):
     vae = VAETrainer(models, device=dev)
     recs = []
 
+    vae_secs = []
+
     def vae_run():
-        recs.extend(vae.step(images[:1]) for _ in range(2))
+        for _ in range(2):
+            t0 = time.perf_counter()
+            recs.append(vae.step(images[:1]))
+            vae_secs.append(time.perf_counter() - t0)
         recs.append(vae.recon_psnr(images[:1]))
     out["vae_2_steps"], vae_s = counted_run(
         torch, "train: VAE, 2 steps at 512², batch 1", vae_run,
         backward=True)
     print(f"train: VAE reconstruction MSE {recs[0]:.5f}, {recs[1]:.5f}, "
-          f"PSNR {recs[2]:.3f} dB, in {vae_s:.2f} s")
+          f"PSNR {recs[2]:.3f} dB, in {vae_s:.2f} s; step seconds "
+          f"{[f'{x:.4f}' for x in vae_secs]} (the second warm)")
     del vae
     torch.cuda.empty_cache()
     cudnn.deterministic, cudnn.benchmark = saved
@@ -3132,7 +3253,7 @@ def main():
         elif name == "serve":
             serve = phase_serve(torch, models, frames, main_fps)
         else:
-            train = phase_train(torch, models)
+            train = phase_train(torch, models, summary)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):

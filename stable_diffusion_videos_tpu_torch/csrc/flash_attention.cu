@@ -25,7 +25,10 @@
 //   registers (the S accumulator re-packed as bf16) and v read in its
 //   natural [key][d] layout through the descriptor's transpose bit.  The
 //   online softmax runs in registers in the log2 domain; while one
-//   consumer runs it, another's wgmma keeps the tensor cores busy.
+//   consumer runs it, another's wgmma keeps the tensor cores busy.  When
+//   given a buffer (a forward whose gradient will be taken), the epilogue
+//   also writes each row's log-sum-exp, which the backward
+//   (attention_backward.cu) reads instead of recomputing the scores.
 // * f32: flash_fwd_kernel on the FMA units, exact to fp32 rounding.
 //
 // Head sizes: TMA loads every operand in 16-column slabs (32 bytes a row,
@@ -45,14 +48,13 @@
 // memory, and each accumulates half of the output columns, so q·kᵀ is
 // computed once.
 
-// cuda.h for CUtensorMap and its enums (types only; see encode_tiled)
-#include <cuda.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <chrono>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -267,65 +269,20 @@ cudaError_t prepare_fp32() {
 
 constexpr int WG_THREADS = 128;
 
+using sdv::desc_b32;
+using sdv::ex2;
+using sdv::fence_regs;
 using sdv::mbar_arrive;
 using sdv::mbar_expect_tx;
 using sdv::mbar_init;
 using sdv::mbar_wait;
+using sdv::named_sync;
+using sdv::pack_bf16;
 using sdv::smem_u32;
-
-// one (16 columns × rows) box of a (D, H, S, B) tensor map into shared memory
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int d, int h, int s,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
-      "r"(h), "r"(s), "r"(b) : "memory");
-}
-
-// wgmma shared-memory descriptor, 32-byte swizzle: start address, leading
-// and stride byte offsets (16-byte units), layout type 3 (B32)
-__device__ __forceinline__ uint64_t desc_b32(const void* p, uint32_t lbo,
-                                             uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (3ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups are still running
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from touching accumulator registers across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using sdv::tma_load;
+using sdv::wgmma_commit;
+using sdv::wgmma_fence;
+using sdv::wgmma_wait;
 
 // Tile sizes and shared-memory layout of one instantiation.  DP: head size
 // rounded up to 16 (NS slabs of 16 columns); BQ q rows (64 a consumer) and
@@ -368,8 +325,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
-                       __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                       int D, float scale_log2) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int Sq, int Sk, int H, int D,
+                       float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -560,6 +518,12 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     for (int r = 0; r < 2; ++r) {
       const int qi = q0 + qw * 64 + 16 * warp + g + 8 * r;
       if (qi >= Sq) continue;
+      // the row's log-sum-exp of the scaled scores, log2 domain, for the
+      // backward (one lane of the four that hold the row; with NDWG == 2
+      // the first of the two consumers that share it)
+      if (lse != nullptr && t4 == 0 && dw == 0)
+        lse[(long long)blockIdx.y * sdv::stat_ld(Sq) + qi] =
+            fmaf(m_run[r], scale_log2, log2f(l_run[r]));
       const float inv = 1.f / l_run[r];
 #pragma unroll
       for (int c = 0; c < C::NO / 8; ++c) {
@@ -573,84 +537,20 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function.  It is fetched through
-// the runtime's cudaGetDriverEntryPoint, so the library links nothing but
-// the CUDA runtime that nvcc adds (no -lcuda).
-EncodeTiled encode_tiled() {
-  // fetched once, by whichever host thread calls first (a thread-safe
-  // static)
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                   cudaEnableDefault, &found) == cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// tensor map of a (B, S, H, D) bf16 tensor as dims (D, H, S, B), loaded in
-// boxes of 16 columns × rows positions (one head, one item); zero fill out
-// of bounds
-int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int D,
-               int rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                 (cuuint64_t)S * H * D * 2};
-  const cuuint32_t box[4] = {16, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
-// The tensor-map encoder is a driver call, and needs a context current on
-// the calling host thread.  A runtime call makes the device's primary
-// context current, but a thread whose first kernel is this one may have made
-// none (PyTorch's allocator serves tensors without a CUDA call), and the
-// encoder then fails with an invalid value: measured on the card, every
-// bf16 attention call of a fresh thread failed until the thread launched
-// another kernel.  So the device of q is made current here first, once a
-// thread and device.
-int bind_device(const void* ptr) {
-  thread_local int bound = -1;
-  cudaPointerAttributes attr;
-  cudaError_t err = cudaPointerGetAttributes(&attr, ptr);
-  if (err == cudaSuccess && attr.device != bound) {
-    err = cudaSetDevice(attr.device);
-    if (err == cudaSuccess) bound = attr.device;
-  }
-  return (int)err;
-}
-
 template <class C>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Sk, int H, int D, float scale_log2,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Sk, int H, int D,
+                 float scale_log2, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = bind_device(q);
-  if (err == 0) err = encode_map(&tq, q, B, Sq, H, D, C::BQ);
-  if (err == 0) err = encode_map(&tk, k, B, Sk, H, D, C::BN);
-  if (err == 0) err = encode_map(&tv, v, B, Sk, H, D, C::BN);
+  int err = sdv::bind_device(q);
+  if (err == 0) err = sdv::encode_map(&tq, q, B, Sq, H, D, C::BQ);
+  if (err == 0) err = sdv::encode_map(&tk, k, B, Sk, H, D, C::BN);
+  if (err == 0) err = sdv::encode_map(&tv, v, B, Sk, H, D, C::BN);
   if (err != 0) return err;
   dim3 grid((Sq + C::BQ - 1) / C::BQ, B * H);
   flash_wgmma_kernel<C><<<grid, C::THREADS, C::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, D, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, D,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -673,13 +573,13 @@ int padded_depth(int D) {
   X(160, 128, 128, 2, 1) X(512, 64, 64, 1, 2)
 
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int D, float scale_log2,
-                   cudaStream_t stream) {
+                   float* lse, int B, int Sq, int Sk, int H, int D,
+                   float scale_log2, cudaStream_t stream) {
   switch (padded_depth(D)) {
 #define SDV_FA(DP, BQ, BN, NSTAGE, NDWG)                                  \
   case DP:                                                                \
     return launch_wgmma<FlashCfg<DP, BQ, BN, NSTAGE, NDWG>>(              \
-        q, k, v, o, B, Sq, Sk, H, D, scale_log2, stream);
+        q, k, v, o, lse, B, Sq, Sk, H, D, scale_log2, stream);
     SDV_FA_CONFIGS(SDV_FA)
 #undef SDV_FA
   }
@@ -690,19 +590,21 @@ int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all contiguous and
 // of one dtype; bf16 needs D % 8 == 0, D <= 512 and 16-byte aligned
-// pointers.  Returns a cudaError_t value (0 = launched).
+// pointers.  lse: null, or (bf16 only) fp32 of (B·H, stat_ld(Sq)) for each
+// row's log-sum-exp of the scaled scores in the log2 domain (the backward's
+// input).  Returns a cudaError_t value (0 = launched).
 extern "C" int sdv_flash_attention(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
-                                   int Sk, int H, int D, float scale,
+                                   const void* v, void* o, float* lse, int B,
+                                   int Sq, int Sk, int H, int D, float scale,
                                    int dtype, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || H < 1 || D < 1 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == sdv::kFloat32)
+  if (dtype == sdv::kFloat32 && lse == nullptr)
     return dispatch(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
   if (dtype == sdv::kBFloat16 && D % 8 == 0)
-    return dispatch_wgmma(q, k, v, o, B, Sq, Sk, H, D, scale_log2, s);
+    return dispatch_wgmma(q, k, v, o, lse, B, Sq, Sk, H, D, scale_log2, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -712,7 +614,7 @@ extern "C" int sdv_flash_attention(const void* q, const void* k,
 // them up while another launches.  Returns a cudaError_t value (0 =
 // ready).
 extern "C" int sdv_prepare_attention() {
-  cudaError_t err = encode_tiled() == nullptr
+  cudaError_t err = sdv::encode_tiled() == nullptr
                         ? cudaErrorSharedObjectSymbolNotFound
                         : cudaSuccess;
   const cudaError_t set[] = {
@@ -745,7 +647,7 @@ extern "C" double sdv_tensor_map_encode_us(const void* ptr, int B, int S,
   CUtensorMap map;
   const auto t0 = std::chrono::steady_clock::now();
   for (int i = 0; i < reps; ++i)
-    if (encode_map(&map, ptr, B, S, H, D, 128) != 0) return -1.0;
+    if (sdv::encode_map(&map, ptr, B, S, H, D, 128) != 0) return -1.0;
   const std::chrono::duration<double, std::micro> dt =
       std::chrono::steady_clock::now() - t0;
   return 3.0 * dt.count() / reps;

@@ -102,8 +102,8 @@ def _build_and_load() -> ctypes.CDLL:
                                f"{library.ptxas_log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.sdv_flash_attention.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                        _F, _I, _P]
+    lib.sdv_flash_attention.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        _I, _F, _I, _P]
     lib.sdv_flash_attention.restype = _I
     lib.sdv_flash_attention_depth.argtypes = [_I]
     lib.sdv_flash_attention_depth.restype = _I
@@ -117,17 +117,29 @@ def _build_and_load() -> ctypes.CDLL:
     lib.sdv_flash_attention_backward.restype = _I
     lib.sdv_attention_backward_tensor_cores.argtypes = [_I]
     lib.sdv_attention_backward_tensor_cores.restype = _I
+    lib.sdv_attention_backward_delta.argtypes = [_P, _P, _P, _I, _I, _I, _I,
+                                                 _P]
+    lib.sdv_attention_backward_delta.restype = _I
+    lib.sdv_attention_backward_fused.argtypes = [_P] * 10 + [
+        _I, _I, _I, _I, _I, _F, _I, _P]
+    lib.sdv_attention_backward_fused.restype = _I
+    lib.sdv_attention_backward_chunk.argtypes = [_P] * 12 + [
+        _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P]
+    lib.sdv_attention_backward_chunk.restype = _I
     lib.sdv_groupnorm_backward_scratch.argtypes = [_I, _I, _LL, _I]
     lib.sdv_groupnorm_backward_scratch.restype = _LL
-    lib.sdv_groupnorm_silu_backward.argtypes = [_P] * 8 + [
+    lib.sdv_groupnorm_silu_backward.argtypes = [_P] * 4 + [_I] + [_P] * 4 + [
         _I, _I, _LL, _I, _F, _I, _I, _P]
     lib.sdv_groupnorm_silu_backward.restype = _I
+    lib.sdv_groupnorm_backward_launches.argtypes = []
+    lib.sdv_groupnorm_backward_launches.restype = _LL
     lib.sdv_error_string.argtypes = [_I]
     lib.sdv_error_string.restype = ctypes.c_char_p
     # what every launch needs once (attributes, the tensor-map encoder),
     # here under the lock, so that no launch from any thread sets it up
     for prepare in (lib.sdv_prepare_attention, lib.sdv_prepare_groupnorm,
-                    lib.sdv_prepare_attention_backward):
+                    lib.sdv_prepare_attention_backward,
+                    lib.sdv_prepare_groupnorm_backward):
         prepare.argtypes = []
         prepare.restype = _I
         err = prepare()

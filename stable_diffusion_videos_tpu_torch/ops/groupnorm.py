@@ -9,8 +9,9 @@ Dispatch is by the tensor's device only: a CUDA tensor launches the kernel
 (or raises), a CPU tensor takes ``groupnorm_reference``, through which
 autograd differentiates.  On the card a call that needs a gradient goes
 through ``GroupNormFunction``, whose backward launches the backward kernel
-(``csrc/groupnorm_backward.cu``, ``groupnorm_silu_backward``); it never
-takes the plain math there.  The JAX package's trainers differentiate flax's
+(``csrc/groupnorm_backward.cu``, ``groupnorm_silu_backward``: one cluster
+launch for dx and the per-channel sums, one small launch for dγ and dβ); it
+never takes the plain math there.  The JAX package's trainers differentiate flax's
 ``nn.GroupNorm`` with XLA, which the plain backward
 ``groupnorm_backward_reference`` writes out.
 
@@ -105,6 +106,14 @@ def _weight_dtype(scale, bias) -> torch.dtype:
         torch.float32, torch.bfloat16) else torch.float32
 
 
+def _as(t: torch.Tensor, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """t in dtype (on device, if given), itself when it already is: no
+    call, which costs microseconds of host time a launch."""
+    device = t.device if device is None else device
+    return t if t.dtype == dtype and t.device == device else t.to(device,
+                                                                   dtype)
+
+
 def _forward(x, scale, bias, num_groups, eps, silu):
     """One forward call by x's device: the kernel or the plain version."""
     if x.device.type == "cpu":
@@ -153,26 +162,29 @@ def groupnorm_silu_backward(x, scale, bias, dy, num_groups: int = 32,
     lib = build.library()
     code = build.dtype_code(x)
     n, c = x.shape[:2]
-    x, dy = x.contiguous(), dy.to(x.dtype).contiguous()
+    x, dy = x.contiguous(), _as(dy, x.dtype).contiguous()
     hw = x.numel() // (n * c)
-    w32 = [w.detach().to(x.device, torch.float32).contiguous()
-           for w in (scale, bias)]
+    # the kernel reads the weights and writes their gradients in their own
+    # dtype (fp32 or bf16), so no cast runs around it
+    w_dtype = _weight_dtype(scale, bias)
+    ws, wb = (_as(w.detach(), w_dtype, x.device).contiguous()
+              for w in (scale, bias))
     dx = torch.empty_like(x)
-    dw = torch.empty(2, c, device=x.device, dtype=torch.float32)
+    dscale, dbias = torch.empty(2, c, device=x.device, dtype=w_dtype).unbind()
     scratch = torch.empty(
         lib.sdv_groupnorm_backward_scratch(n, c, hw, num_groups),
         device=x.device, dtype=torch.float32)
     err = lib.sdv_groupnorm_silu_backward(
-        x.data_ptr(), dy.data_ptr(), w32[0].data_ptr(), w32[1].data_ptr(),
-        dx.data_ptr(), dw[0].data_ptr(), dw[1].data_ptr(), scratch.data_ptr(),
-        n, c, hw, num_groups, float(eps), int(silu), code,
+        x.data_ptr(), dy.data_ptr(), ws.data_ptr(), wb.data_ptr(),
+        build.DTYPE_CODES[str(w_dtype)], dx.data_ptr(), dscale.data_ptr(),
+        dbias.data_ptr(), scratch.data_ptr(), n, c, hw, num_groups,
+        float(eps), int(silu), code,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "groupnorm backward kernel")
     groupnorm_silu_backward.launches += 1
     groupnorm_silu_backward.by_shape[(tuple(x.shape), float(eps), bool(silu),
-                                      x.dtype, _weight_dtype(scale,
-                                                             bias))] += 1
-    return dx, dw[0].to(scale.dtype), dw[1].to(bias.dtype)
+                                      x.dtype, w_dtype)] += 1
+    return dx, _as(dscale, scale.dtype), _as(dbias, bias.dtype)
 
 
 groupnorm_silu_backward.launches = 0

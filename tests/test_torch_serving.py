@@ -814,7 +814,8 @@ def test_first_build_is_one_build_across_threads(tmp_path, monkeypatch):
     assert len(got) == 8 and all(lib is got[0] for lib in got)
     # the kernels were prepared once, under the lock, before any launch
     assert prepared == ["sdv_prepare_attention", "sdv_prepare_groupnorm",
-                        "sdv_prepare_attention_backward"]
+                        "sdv_prepare_attention_backward",
+                        "sdv_prepare_groupnorm_backward"]
     # the temporary names carry the process and the thread
     tag = pathlib.Path(links[0]).name.split(".", 1)[1]
     assert tag.count(".") == 2 and tag.endswith(".so")
