@@ -153,7 +153,28 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    check that must reject three planted faults, each row's route named
    (fused or materialised, from the wrapper's route counters), and the FMA
    path checked and timed beside the tensor cores; every GroupNorm
-   backward call in two kernel launches).
+   backward call in two kernel launches);
+14. quality: the native bundle format, the trained checkpoints, LPIPS, the
+   parity gate and ``validate`` (``models/io.py``, ``utils/``): phase 5's
+   bundle saved through ``SDModels.save`` and loaded back onto the card
+   (every parameter and an 8-frame pndm-50 dispatch bit-equal; the
+   bundle's size, save and load seconds), then ``convert`` as a process on
+   an SD 1.5-layout directory (its bundle bit-equal to ``from_pretrained``
+   of the directory, both timed); the committed trained checkpoints
+   (``tests/goldens/structured_bundle``, ``structured_lcm_bundle``) read by
+   ``SDModels.load`` alone, onto the card in fp32 (TF32 off) and onto the
+   CPU, their 8 structured prompts denoised under pndm-50, dpm-20 x
+   ``step_cache=2`` "ends" and ``fast`` at CFG 3.0, and lcm-4 cond-only
+   free and frozen (noise fields from numpy seeds), the card's frames
+   within 2/255 of the CPU's at PSNR >= 50 dB and SSIM >= 0.999 on every
+   frame, and once in bf16 against fp32; LPIPS AlexNet and VGG16 on random
+   ``.npz`` weights at 512², 8 pairs, card against CPU (VGG on 2 pairs
+   there) and ms a pair; the parity gate on the card against the CPU's
+   gate walk (pass) and another model's (fail); ``run_validation`` of the
+   trained bundle with that reference, that LPIPS file and a Real-ESRGAN
+   x4plus file drawn here, every stage ``ok``.  Each card run's launches
+   by shape, every one of which phase 3 checks (the trained checkpoints'
+   rows in fp32 and bf16).
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record (the two forward kernels and the two backward
@@ -180,7 +201,7 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "stable_diffusion_videos_tpu_torch" / "_build"
 PHASES = ("env", "build", "kernels", "golden", "main", "fewstep",
           "distilled", "families", "edit", "addons", "post", "serve",
-          "train")
+          "train", "quality")
 TOL = {"float32": dict(atol=1e-4, rtol=1e-4),
        # the output's bf16 rounding plus sums taken in another order
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -434,6 +455,50 @@ TOME_S = 4096 - int(TOME_RATIO * 4096)
 POST_ATTN_SHAPES = new_rows([(16, TOME_S, TOME_S, 8, 40)], ATTN_SHAPES,
                             FAMILY_ATTN_SHAPES, EDIT_ATTN_SHAPES,
                             ADDON_ATTN_SHAPES)
+# Phase 14 on the committed trained checkpoints (tests/goldens/
+# structured_bundle and structured_lcm_bundle: UNet levels (64, 128) at 16²
+# and 8² latents with 4 heads, D=16 and 32; the KL decoder's mid-block
+# attention over 64 channels, one head, at 16² latents): the UNet's (Sq, Sk,
+# H, D), at CFG batch 16 (8 prompts), 8 (cond-only segments, lcm-4, the
+# gate's walk of 4 frames under CFG), 2 (validate's smoke frame and step
+# curve) and 1 (their cond-only segments); the decoder's at 8, 4 and 1, the
+# encoder's at 1
+STRUCTURED_UNET_ATTN = [(256, 256, 4, 16), (256, 77, 4, 16),
+                        (64, 64, 4, 32), (64, 77, 4, 32)]
+QUALITY_ATTN_SHAPES = ([(b, *a) for b in (16, 8, 2, 1)
+                        for a in STRUCTURED_UNET_ATTN]
+                       + [(b, 256, 256, 1, 64) for b in (8, 4, 1)])
+# (C, H, W, eps, silu): the UNet's resnets and transformer norms (2 and 4
+# channels a group, up to 8 on the up path's concatenations), the KL
+# decoder's and the encoder's (1 and 2 channels a group)
+STRUCTURED_UNET_GN = [(64, 16, 16, 1e-5, True), (64, 16, 16, 1e-6, False),
+                      (64, 8, 8, 1e-5, True), (128, 8, 8, 1e-5, True),
+                      (128, 8, 8, 1e-6, False), (256, 8, 8, 1e-5, True),
+                      (192, 8, 8, 1e-5, True), (192, 16, 16, 1e-5, True),
+                      (128, 16, 16, 1e-5, True)]
+STRUCTURED_DEC_GN = [(64, 16, 16, 1e-6, True), (64, 16, 16, 1e-6, False),
+                     (64, 32, 32, 1e-6, True), (32, 32, 32, 1e-6, True)]
+STRUCTURED_ENC_GN = [(32, 32, 32, 1e-6, True), (32, 16, 16, 1e-6, True),
+                     (64, 16, 16, 1e-6, True), (64, 16, 16, 1e-6, False)]
+QUALITY_GN_SHAPES = list(dict.fromkeys(
+    [((b, c, h, w), eps, silu) for b in (16, 8, 2, 1)
+     for c, h, w, eps, silu in STRUCTURED_UNET_GN]
+    + [((b, c, h, w), eps, silu) for b in (8, 4, 1)
+       for c, h, w, eps, silu in STRUCTURED_DEC_GN]
+    + [((1, c, h, w), eps, silu) for c, h, w, eps, silu in
+       STRUCTURED_ENC_GN]))
+# the trained checkpoints' frames on the card (fp32, TF32 off) against the
+# CPU's: the bounds the CPU suite holds the port to against the JAX package
+TRAINED_TOL = dict(max_abs=2 / 255, psnr_min=50.0, ssim_min=0.999)
+# the bf16 pndm-50 dispatch of the trained checkpoint against the card's
+# fp32 one: bf16 rounding through 50 steps moves some frames far (one frame
+# of 8 reads 20.5 dB, on the CPU and on an H100), so the bound is on the
+# means, which read 44.8 dB and 0.973 on an H100 (set at 30 dB and 0.90
+# before the first reading)
+TRAINED_BF16_TOL = dict(psnr_mean=40.0, ssim_mean=0.95)
+# LPIPS on the card (fp32, TF32 off) against the CPU: the JAX package's
+# own test tolerance (tests/test_lpips.py)
+LPIPS_TOL = dict(rtol=2e-4, atol=2e-5)
 # the upsampler, the safety checker's tower and head, and the FreeU filter
 # in fp32 (TF32 off) on the card against the CPU; ToMe's merge and unmerge
 POST_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -788,7 +853,8 @@ def phase_kernels(torch):
             ("edit", EDIT_ATTN_SHAPES, EDIT_GN_SHAPES),
             ("addons", ADDON_ATTN_SHAPES, []),
             ("post", POST_ATTN_SHAPES, []),
-            ("serve", SERVE_ATTN_SHAPES, SERVE_GN_SHAPES))}
+            ("serve", SERVE_ATTN_SHAPES, SERVE_GN_SHAPES),
+            ("quality", QUALITY_ATTN_SHAPES, QUALITY_GN_SHAPES))}
 
     def record(name, key, text, dt, err, ms, pms, lms, bound):
         b_ms, b_by = bound
@@ -820,7 +886,8 @@ def phase_kernels(torch):
                                 + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
                                 + SERVE_ATTN_SHAPES + TRAIN_ATTN_SHAPES
                                 if dt == torch.bfloat16
-                                else TRAIN_FP32_ATTN_SHAPES)
+                                else TRAIN_FP32_ATTN_SHAPES) \
+            + QUALITY_ATTN_SHAPES
         for b, sq, sk, h, d in shapes:
             q = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
             k = torch.randn(b, sk, h, d, device=dev, generator=g).to(dt)
@@ -879,6 +946,7 @@ def phase_kernels(torch):
                                       + SERVE_GN_SHAPES + TRAIN_GN_SHAPES
                                       if dt == torch.bfloat16
                                       else TRAIN_FP32_GN_SHAPES)]
+                + [(*c, dt) for c in QUALITY_GN_SHAPES]
                 + [(*c, torch.float32) for c in GN_EXTRA]):
             x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
             scale = torch.randn(shape[1], device=dev, generator=g).to(w_dt)
@@ -1169,12 +1237,14 @@ def counted_run(torch, label: str, run, backward: bool = False):
         "flash_attention": {(*s, bf16) for s in ATTN_SHAPES
                             + FAMILY_ATTN_SHAPES + EDIT_ATTN_SHAPES
                             + ADDON_ATTN_SHAPES + POST_ATTN_SHAPES
-                            + SERVE_ATTN_SHAPES + TRAIN_ATTN_SHAPES}
-        | fp32_attn,
+                            + SERVE_ATTN_SHAPES + TRAIN_ATTN_SHAPES
+                            + QUALITY_ATTN_SHAPES}
+        | fp32_attn | {(*s, fp32) for s in QUALITY_ATTN_SHAPES},
         "fused_groupnorm_silu": {(*c, bf16, bf16) for c in GN_SHAPES
                                  + FAMILY_GN_SHAPES + EDIT_GN_SHAPES
-                                 + SERVE_GN_SHAPES + TRAIN_GN_SHAPES}
-        | fp32_gn,
+                                 + SERVE_GN_SHAPES + TRAIN_GN_SHAPES
+                                 + QUALITY_GN_SHAPES}
+        | fp32_gn | {(*c, fp32, fp32) for c in QUALITY_GN_SHAPES},
         "flash_attention_backward": {(*s, dt) for s in BWD_ATTN_SHAPES
                                      for dt in (bf16, fp32)} | fp32_attn,
         "groupnorm_silu_backward": {(*c, dt, dt) for c in BWD_GN_SHAPES
@@ -3200,6 +3270,283 @@ def phase_train(torch, models, summary=None):
     return out
 
 
+STRUCTURED = ROOT / "tests" / "goldens" / "structured_bundle"
+STRUCTURED_LCM = ROOT / "tests" / "goldens" / "structured_lcm_bundle"
+# tests/test_torch_structured.py's runs on the trained checkpoint, CFG 3.0,
+# and tests/test_torch_distilled.py's lcm-4 cond-only on the student
+STRUCTURED_RUNS = {"pndm50": ("pndm", 50, {}),
+                   "dpm20_k2_ends": ("dpm", 20, dict(
+                       step_cache=2, step_cache_policy="ends")),
+                   "fast": ("pndm", 50, dict(fast=True))}
+DISTILLED = dict(scheduler="lcm", guidance_interval=(0.0, 0.0),
+                 batch_bucket=8)
+
+
+def dir_gb(root: Path) -> float:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file()) / 1e9
+
+
+def assert_same_weights(label: str, got, want) -> None:
+    """Every parameter of the two bundles' modules bit-equal."""
+    from stable_diffusion_videos_tpu_torch.models.io import _state_dicts
+    a, b = _state_dicts(got), _state_dicts(want)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{label}: components {sorted(a)} against "
+                             f"{sorted(b)}")
+    for name, (sd, _) in b.items():
+        other = a[name][0]
+        if sorted(other) != sorted(sd) or not all(
+                other[k].dtype == sd[k].dtype
+                and other[k].equal(sd[k].to(other[k].device)) for k in sd):
+            raise AssertionError(f"{label}: the {name} differs")
+
+
+def structured_frames(torch, models, dev, scheduler, steps, kw):
+    """The 8 structured prompts (the port's embedding on ``dev``) denoised
+    from numpy seed 7's noise at CFG 3.0 -> float32 frames (8, 32, 32, 3)."""
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.training import \
+        make_structured_dataset
+    _, prompts = make_structured_dataset(32)
+    eng = StableDiffusionWalkPipeline(models, dev, scheduler=scheduler,
+                                      safety=False, **kw).engine
+    h = models.unet_config.sample_size
+    noise = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (len(prompts), h, h, 4)).astype(np.float32))
+    return eng.denoise_frames(eng.embed_text(prompts), eng.embed_text(""),
+                              noise, num_inference_steps=steps,
+                              guidance_scale=3.0)
+
+
+def distilled_frames(torch, models, dev, frozen: bool):
+    """lcm-4 cond-only on the student, every step's noise field drawn from
+    numpy seed 100 + step (one field broadcast over the batch when
+    ``frozen``), the same on either device."""
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    from stable_diffusion_videos_tpu_torch.training import \
+        make_structured_dataset
+    _, prompts = make_structured_dataset(32)
+    eng = Engine(models, dev, frozen_noise=frozen, **DISTILLED)
+    h = models.unet_config.sample_size
+    noise = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (len(prompts), h, h, 4)).astype(np.float32))
+
+    def field(i, latents):
+        rows = 1 if frozen else latents.shape[0]
+        f = np.random.default_rng(100 + i).standard_normal(
+            (rows, *latents.shape[1:])).astype(np.float32)
+        return torch.from_numpy(f).to(latents.device)
+    return eng.denoise_frames(eng.embed_text(prompts), eng.embed_text(""),
+                              noise, num_inference_steps=4,
+                              guidance_scale=1.0, generator=field)
+
+
+def check_trained(label: str, card: np.ndarray, cpu: np.ndarray) -> dict:
+    from stable_diffusion_videos_tpu_torch.utils.metrics import \
+        quality_vs_exact
+    q = quality_vs_exact(card, cpu, lpips_device="cpu")
+    q["max_abs"] = float(np.abs(card - cpu).max())
+    print(f"quality: {label} on the card against the CPU (fp32, TF32 "
+          f"off): {q}")
+    tol = TRAINED_TOL
+    if (card.shape != cpu.shape or q["max_abs"] > tol["max_abs"]
+            or q["psnr_min"] < tol["psnr_min"]
+            or q["ssim_min"] < tol["ssim_min"] or not cpu.std() > 0.05):
+        raise AssertionError(f"quality: {label} is outside {tol}: {q}")
+    return q
+
+
+def random_lpips_npz(path: Path, net: str, seed: int) -> str:
+    """LPIPS weights at the published widths drawn from a numpy seed (the
+    backbone N(0, 0.05), the heads |N(0, 1)|), written as ``.npz``."""
+    from stable_diffusion_videos_tpu_torch.utils.lpips import LPIPS
+    rng = np.random.default_rng(seed)
+    state = {}
+    for k, v in LPIPS(net).state_dict().items():
+        w = rng.standard_normal(tuple(v.shape)).astype(np.float32)
+        state[k] = np.abs(w) if k.startswith("lin") else w * 0.05
+    np.savez(path, **state)
+    return str(path)
+
+
+def phase_quality(torch, models, frames):
+    """The native bundle format at full width, the committed trained
+    checkpoints read by the port alone and walked on the card against the
+    CPU, LPIPS at its published widths, the parity gate and ``validate``;
+    -> {run: {kernel: launches}}."""
+    from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
+    from stable_diffusion_videos_tpu_torch.models.rrdbnet import \
+        RRDBNetConfig
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.utils import parity_gate
+    from stable_diffusion_videos_tpu_torch.utils.lpips import (
+        load_lpips_weights, lpips_distance)
+    from stable_diffusion_videos_tpu_torch.utils.metrics import \
+        quality_vs_exact
+    from stable_diffusion_videos_tpu_torch.utils.validate import \
+        run_validation
+    dev, cpu, line, out = (torch.device("cuda"), torch.device("cpu"),
+                           gpu_line(), {})
+    root = WORK / "quality"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+
+    # 1. phase 5's bundle through the native format, and `convert`
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    models.save(root / "bundle")
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = SDModels.load(root / "bundle", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    assert_same_weights("quality: the loaded SD 1.x bundle", loaded, models)
+    ref = StableDiffusionWalkPipeline(models, dev, safety=False)
+    pipe = StableDiffusionWalkPipeline(loaded, dev, safety=False)
+    cond, uncond, noise = dispatch_inputs(torch, ref)
+    run = dict(num_inference_steps=50, guidance_scale=7.5,
+               output_dtype="uint8")
+    got = {}
+    for label, p in (("original", ref), ("loaded", pipe)):
+        out[f"dispatch_{label}"], _ = counted_run(
+            torch, f"quality: {label} bundle's dispatch",
+            lambda p=p, label=label: got.__setitem__(
+                label, p.engine.denoise_frames(cond, uncond, noise, **run)))
+    if not np.array_equal(got["original"], got["loaded"]):
+        raise AssertionError("quality: the loaded bundle's frames differ")
+    del ref, pipe, loaded
+    torch.cuda.empty_cache()
+    src = write_checkpoint(models, root / "diffusers")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "stable_diffusion_videos_tpu_torch",
+                    "convert", "--checkpoint", str(src), "--out",
+                    str(root / "converted")], check=True, cwd=ROOT,
+                   timeout=600)
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = SDModels.from_pretrained(src)
+    pretrained_s = time.perf_counter() - t0
+    assert_same_weights("quality: the converted bundle",
+                        SDModels.load(root / "converted"), want)
+    print(f"quality: SD 1.x bundle (bf16, TAESD) {dir_gb(root / 'bundle'):.3f}"
+          f" GB on disk; save {save_s:.2f} s, load onto the card "
+          f"{load_s:.2f} s, convert (a process) {convert_s:.2f} s, "
+          f"from_pretrained of the directory {pretrained_s:.2f} s "
+          f"({dir_gb(src):.3f} GB), on {line}; every parameter and an "
+          f"8-frame pndm-50 dispatch bit-equal, the converted bundle "
+          f"bit-equal to from_pretrained")
+    del want
+    shutil.rmtree(root / "diffusers")
+    shutil.rmtree(root / "converted")
+    shutil.rmtree(root / "bundle")
+
+    # 2. the committed trained checkpoints, fp32, the card against the CPU
+    trained = {d: SDModels.load(STRUCTURED, device=d) for d in (dev, cpu)}
+    quality = {}
+    for label, (sched, steps, kw) in STRUCTURED_RUNS.items():
+        card = {}
+        out[f"trained_{label}"], _ = counted_run(
+            torch, f"quality: trained checkpoint {label}",
+            lambda: card.setdefault("f", structured_frames(
+                torch, trained[dev], dev, sched, steps, kw)))
+        quality[label] = check_trained(label, card["f"], structured_frames(
+            torch, trained[cpu], cpu, sched, steps, kw))
+        if label == "pndm50":
+            fp32_card = card["f"]
+    student = {d: SDModels.load(STRUCTURED_LCM, device=d) for d in (dev, cpu)}
+    for frozen in (False, True):
+        label = f"lcm4_{'frozen' if frozen else 'free'}"
+        card = {}
+        out[f"trained_{label}"], _ = counted_run(
+            torch, f"quality: distilled checkpoint {label}",
+            lambda: card.setdefault("f", distilled_frames(
+                torch, student[dev], dev, frozen)))
+        quality[label] = check_trained(label, card["f"], distilled_frames(
+            torch, student[cpu], cpu, frozen))
+    bf16 = SDModels.load(STRUCTURED, dtype=torch.bfloat16, device=dev)
+    card = {}
+    out["trained_pndm50_bf16"], _ = counted_run(
+        torch, "quality: trained checkpoint pndm50 in bf16",
+        lambda: card.setdefault("f", structured_frames(
+            torch, bf16, dev, "pndm", 50, {})))
+    q = quality_vs_exact(card["f"], fp32_card, lpips_device="cpu")
+    print(f"quality: the trained checkpoint's pndm-50 in bf16 against fp32, "
+          f"both on the card: {q}")
+    if (q["psnr_mean"] < TRAINED_BF16_TOL["psnr_mean"]
+            or q["ssim_mean"] < TRAINED_BF16_TOL["ssim_mean"]):
+        raise AssertionError(f"quality: bf16 is outside {TRAINED_BF16_TOL}")
+    del bf16, student
+
+    # 3. LPIPS at the published widths: 8 pairs at 512², phase 5's frames
+    # against the same frames with seeded noise
+    a = frames if frames is not None else synthetic_frames()
+    b = np.clip(a.astype(np.int16) + np.random.default_rng(31).integers(
+        -12, 13, a.shape), 0, 255).astype(np.uint8)
+    for net, seed, cpu_pairs in (("alex", 41, 8), ("vgg", 42, 2)):
+        path = random_lpips_npz(root / f"lpips_{net}.npz", net, seed)
+        on_card = load_lpips_weights(path, net, device=dev)
+        got = lpips_distance(a, b, on_card)
+        want = lpips_distance(a[:cpu_pairs], b[:cpu_pairs],
+                              load_lpips_weights(path, net, device=cpu))
+        err = np.abs(got[:cpu_pairs] - want).max()
+        ta, tb = (torch.from_numpy(x).to(dev).float().div(255).mul(2)
+                  .sub(1).permute(0, 3, 1, 2) for x in (a, b))
+        with torch.no_grad():
+            ms = time_ms(torch, lambda: on_card(ta, tb)) / len(a)
+        print(f"quality: LPIPS {net} at 512², {len(a)} pairs: {got} on the "
+              f"card, max abs err against the CPU ({cpu_pairs} pairs) "
+              f"{err:.3e}; {ms:.4f} ms a pair (cuDNN, fp32) on {line}")
+        np.testing.assert_allclose(got[:cpu_pairs], want, **LPIPS_TOL)
+        del on_card, ta, tb
+    torch.cuda.empty_cache()
+
+    # 4. the gate and validate on the card, against the CPU's gate walk
+    def gate_walk(models_, device, name):
+        StableDiffusionWalkPipeline(models_, device, safety=False).walk(
+            prompts=list(parity_gate.GATE_PROMPTS),
+            seeds=list(parity_gate.GATE_SEEDS), output_dir=str(root),
+            name=name, make_video=False, **parity_gate.GATE_CONFIG)
+        return root / name
+    reference = gate_walk(trained[cpu], cpu, "reference")
+    other = gate_walk(SDModels.load(STRUCTURED_LCM), cpu, "other_model")
+    alex = str(root / "lpips_alex.npz")
+    pipe = StableDiffusionWalkPipeline(trained[dev], dev, safety=False)
+    res = {}
+    out["parity_gate"], _ = counted_run(
+        torch, "quality: parity gate", lambda: res.setdefault(
+            "ok", parity_gate.run_parity_gate(pipe, str(reference),
+                                              str(root / "gate"),
+                                              lpips_weights=alex)))
+    bad = parity_gate.run_parity_gate(pipe, str(other), str(root / "gate2"),
+                                      lpips_weights=alex)
+    print(f"quality: parity gate against the CPU's frames {res['ok']}; "
+          f"against another model's {bad}")
+    if not res["ok"]["pass"] or bad["pass"]:
+        raise AssertionError("quality: the gate must pass against the CPU's "
+                             "frames and fail against another model's")
+    esrgan = root / "esrgan.pth"
+    torch.save({"params_ema": random_rrdbnet(torch, RRDBNetConfig(), 43)},
+               esrgan)
+    rep = {}
+    out["validate"], validate_s = counted_run(
+        torch, "quality: validate", lambda: rep.setdefault(
+            "r", run_validation(str(STRUCTURED), str(root / "validate"),
+                                reference_frames=str(reference),
+                                lpips_weights=alex,
+                                upsample_weights=str(esrgan), device=dev)))
+    rep = rep["r"]
+    print(f"quality: validate in {validate_s:.2f} s: {rep['summary']}, "
+          f"pass {rep['pass']}; step curve "
+          f"{rep['stages']['step_cache_curve'].get('curve')}")
+    if not rep["pass"] or set(rep["summary"].values()) != {"ok"}:
+        raise AssertionError(f"quality: validate did not pass every stage: "
+                             f"{json.dumps(rep, default=str)[:2000]}")
+    shutil.rmtree(root)
+    return out
+
+
 def free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -3220,11 +3567,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_env(torch)  # always: it refuses to go on without CUDA
     summary, launches, fewstep, distilled, families, edit, addons, post, \
-        serve, train = (None,) * 10
+        serve, train, quality = (None,) * 11
     frames, xl_parts, main_fps = None, None, None
     models = (sd1_bundle(torch)
               if {"main", "fewstep", "distilled", "edit", "addons", "post",
-                  "serve", "train"} & set(phases) else None)
+                  "serve", "train", "quality"} & set(phases) else None)
     for name in PHASES[1:]:
         if name not in phases:
             continue
@@ -3252,8 +3599,10 @@ def main():
             post = phase_post(torch, models, frames)
         elif name == "serve":
             serve = phase_serve(torch, models, frames, main_fps)
-        else:
+        elif name == "train":
             train = phase_train(torch, models, summary)
+        else:
+            quality = phase_quality(torch, models, frames)
         print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
               flush=True)
     if set(phases) != set(PHASES):
@@ -3291,6 +3640,8 @@ def main():
                               for run, counts in post.items()}
         k["launches_serve"] = {run: counts[wrapper[k["name"]]]
                                for run, counts in serve.items()}
+        k["launches_quality"] = {run: counts[wrapper[k["name"]]]
+                                 for run, counts in quality.items()}
     # the backward kernels have no Pallas counterpart: the JAX package's
     # trainers differentiate its XLA routes
     for name, source, replaces in (

@@ -1,17 +1,20 @@
 """The command line: ``python -m stable_diffusion_videos_tpu_torch <command>``.
 
 Counterpart of ``stable_diffusion_videos_tpu/__main__.py`` with the
-commands ``walk``, ``vid2vid``, ``images``, ``upsample``, ``app`` and
-``serve`` and the same options.  ``--device`` is ``cuda`` unless the caller
-asks for ``cpu``; without a CUDA device the command stops with an error
-rather than run on the CPU unasked.  Without ``--checkpoint`` the pipeline
-is the random tiny model.  The JAX command line's ``convert``, ``compare``,
-``parity-gate``, ``validate`` and ``bench`` are not ported yet.
+commands ``walk``, ``vid2vid``, ``images``, ``upsample``, ``app``,
+``serve``, ``convert`` (a checkpoint to a native bundle), ``compare`` (two
+frame directories' PSNR, SSIM and LPIPS), ``parity-gate`` and ``validate``,
+with the same options.  ``--device`` is ``cuda`` unless the caller asks for
+``cpu``; without a CUDA device the command stops with an error rather than
+run on the CPU unasked.  Without ``--checkpoint`` the pipeline is the
+random tiny model (``validate`` also takes a native bundle).  The JAX
+command line's ``bench`` is not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -271,6 +274,53 @@ def cmd_serve(args):
         host=args.host, port=args.port)
 
 
+def cmd_convert(args):
+    from .models.bundle import SDModels
+    models = SDModels.from_pretrained(
+        args.checkpoint, with_safety=not args.no_safety,
+        tokenizer_dir=args.tokenizer_dir,
+        prediction_type=args.prediction_type)
+    print(models.save(args.out))
+    for k, n in models.param_count().items():
+        print(f"  {k}: {n / 1e6:.1f}M params")
+
+
+def cmd_compare(args):
+    import os
+
+    from .utils.metrics import compare_frame_dirs
+    # the device is asked for only when LPIPS runs
+    lpips = args.lpips_weights or os.environ.get("SDV_LPIPS_WEIGHTS")
+    print(json.dumps(compare_frame_dirs(
+        args.a, args.b, glob=args.glob, lpips_weights=args.lpips_weights,
+        lpips_net=args.lpips_net,
+        lpips_device=_device(args) if lpips else "cpu"), indent=2))
+
+
+def cmd_parity_gate(args):
+    from .utils.parity_gate import run_parity_gate
+    res = run_parity_gate(_pipeline(args), args.reference_frames,
+                          args.output_dir, lpips_weights=args.lpips_weights,
+                          lpips_net=args.lpips_net, height=args.height,
+                          width=args.width)
+    print(json.dumps(res, indent=2))
+    raise SystemExit(0 if res["pass"] else 1)
+
+
+def cmd_validate(args):
+    from .utils.validate import run_validation
+    res = run_validation(
+        args.checkpoint, output_dir=args.output_dir,
+        reference_frames=args.reference_frames,
+        lpips_weights=args.lpips_weights,
+        upsample_weights=args.upsample_weights, scheduler=args.scheduler,
+        num_inference_steps=args.num_inference_steps, height=args.height,
+        width=args.width, step_cache_ks=tuple(args.step_cache_ks),
+        tokenizer_dir=args.tokenizer_dir, device=_device(args))
+    print(json.dumps(res, indent=2, default=str))
+    raise SystemExit(0 if res["pass"] else 1)
+
+
 def _upsample_args(p):
     p.add_argument("--upsample", action="store_true")
     p.add_argument("--upsample-weights", default=None, metavar="PTH",
@@ -362,7 +412,73 @@ def build_parser() -> argparse.ArgumentParser:
     srv.add_argument("--output-root", default="./dreams",
                      help="directory every /walk output is confined under")
     srv.set_defaults(fn=cmd_serve)
+
+    cv = sub.add_parser("convert",
+                        help="diffusers dir or single .ckpt/.safetensors "
+                             "-> native bundle (read by both packages)")
+    cv.add_argument("--checkpoint", required=True)
+    cv.add_argument("--out", required=True)
+    cv.add_argument("--no-safety", action="store_true")
+    cv.add_argument("--tokenizer-dir", default=None, metavar="DIR")
+    cv.add_argument("--prediction-type", default=None,
+                    choices=["epsilon", "v_prediction"])
+    cv.set_defaults(fn=cmd_convert)
+
+    cmp_ = sub.add_parser("compare",
+                          help="PSNR/SSIM/LPIPS parity between two frame "
+                               "dirs")
+    cmp_.add_argument("--a", required=True)
+    cmp_.add_argument("--b", required=True)
+    cmp_.add_argument("--glob", default="**/frame*.png")
+    _lpips_args(cmp_)
+    cmp_.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                      help="where LPIPS runs (default cuda)")
+    cmp_.set_defaults(fn=cmd_compare)
+
+    pg = sub.add_parser(
+        "parity-gate",
+        help="the fixed 2-prompt walk against a reference frame dump "
+             "(PSNR/SSIM/LPIPS); exit 0 = PASS")
+    _add_common(pg)
+    pg.add_argument("--reference-frames", required=True,
+                    help="dir of frames recorded at the gate's config")
+    pg.add_argument("--output-dir", default="./parity_runs")
+    _lpips_args(pg)
+    pg.set_defaults(fn=cmd_parity_gate)
+
+    va = sub.add_parser(
+        "validate",
+        help="one-shot checkpoint validation: load -> smoke frame -> VAE "
+             "round trip -> parity-gate walk -> step-cache quality curve "
+             "-> Real-ESRGAN; writes validation_report.json, exit 0 = "
+             "every stage that ran passed")
+    va.add_argument("checkpoint",
+                    help="diffusers dir / single .ckpt(.safetensors) / "
+                         "native bundle dir")
+    va.add_argument("--output-dir", default="./validate_out")
+    va.add_argument("--reference-frames", default=None,
+                    help="reference frame dump for the parity gate (stage "
+                         "skipped if omitted)")
+    va.add_argument("--lpips-weights", default=None)
+    va.add_argument("--upsample-weights", default=None,
+                    help="RealESRGAN_x4plus.pth (stage skipped if omitted)")
+    va.add_argument("--scheduler", default="pndm")
+    va.add_argument("--num-inference-steps", type=int, default=50)
+    va.add_argument("--height", type=int, default=None)
+    va.add_argument("--width", type=int, default=None)
+    va.add_argument("--step-cache-ks", type=int, nargs="+", default=[2, 3])
+    va.add_argument("--tokenizer-dir", default=None,
+                    help="vocab dir for single-file checkpoints")
+    va.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    va.set_defaults(fn=cmd_validate)
     return ap
+
+
+def _lpips_args(p):
+    p.add_argument("--lpips-weights", default=None,
+                   help="torch .pth/.npz of AlexNet|VGG + lin heads (or env "
+                        "SDV_LPIPS_WEIGHTS)")
+    p.add_argument("--lpips-net", default="alex", choices=("alex", "vgg"))
 
 
 def main(argv=None):

@@ -16,7 +16,9 @@ UNet applies FreeU or ToMe around the same weight tensors.  ``tiled``: the
 UNet's and the KL autoencoder's 3x3 convolutions pad circularly, so frames
 tile seamlessly (``with_tiled``).  ``from_pretrained`` loads a
 diffusers-layout directory or hub id (``weights.load_sd_checkpoint``) or a
-single original-layout file (``ldm.load_ldm_checkpoint``).
+single original-layout file (``ldm.load_ldm_checkpoint``); ``save`` and
+``load`` write and read the JAX package's native bundle format
+(``models/io.py``).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ class SDModels:
     #: circular 3x3 convolutions in the UNet and the KL autoencoder (and an
     #: engine's ControlNets): seamlessly tileable frames
     tiled: bool = False
+    #: the native format's scheduler fields that SchedulerConfig lacks
+    #: (``models/io.py``), kept so that a bundle saves as it was read
+    bundle_scheduler_fields: dict = dataclasses.field(default_factory=dict)
 
     @property
     def is_xl(self) -> bool:
@@ -126,6 +131,25 @@ class SDModels:
         from .weights import load_sd_checkpoint
         return load_sd_checkpoint(path, dtype=dtype, tiled=tiled,
                                   with_safety=with_safety)
+
+    def save(self, path) -> str:
+        """Write the bundle in the native format (``models/io.py``), which
+        the JAX package's ``SDModels.load`` also reads; -> the path."""
+        from .io import save_bundle
+        return save_bundle(self, path)
+
+    @classmethod
+    def load(cls, path, dtype: Optional[torch.dtype] = None,
+             device="cpu") -> "SDModels":
+        """A native-format bundle directory, written by either package, on
+        ``device`` in ``dtype`` (default: the bundle's)."""
+        from .io import load_bundle
+        return load_bundle(path, dtype=dtype, device=device)
+
+    def param_count(self) -> dict[str, int]:
+        """Parameters a component, under the native format's names."""
+        from .io import param_count
+        return param_count(self)
 
     def with_tome(self, ratio: float, max_level: int = 0) -> "SDModels":
         """Bundle copy whose UNet merges ``ratio`` of the self-attention

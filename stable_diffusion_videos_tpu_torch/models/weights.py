@@ -12,7 +12,8 @@
   encoder's trees map to diffusers ``AutoencoderTiny`` names
   (``decoder.layers.N`` and ``encoder.layers.N``, conv_in at 0), the
   safety checker's to diffusers ``StableDiffusionSafetyChecker`` names and
-  RRDBNet's to basicsr's.
+  RRDBNet's to basicsr's.  ``to_jax_params(state_dict, config)`` is the
+  inverse: both walk one table of (flax path, diffusers key, kind) rows.
 * ``load_state_dict(module, state_dict)`` loads diffusers-named numpy arrays,
   strict about missing and unexpected keys.  A
   transformer's ``proj_in``/``proj_out`` loads from either layout diffusers
@@ -60,246 +61,372 @@ from .unet import UNetConfig
 from .vae import VAEConfig
 
 
-def _conv(p, name, out):
-    out[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
-    if "bias" in p:
-        out[f"{name}.bias"] = np.asarray(p["bias"])
+# ---------------------------------------------------------------------------
+# the JAX package's layout <-> diffusers names: one table, walked both ways
+# ---------------------------------------------------------------------------
+# A row is (flax path under "params", diffusers key, kind).  Optional leaves
+# (a bias, a resnet's shortcut, SDXL's add_embedding, a tower's projection)
+# have rows too: a row whose source is absent is skipped, and the module's
+# strict load (or ``to_jax_params``' check) reports what is missing.
+
+def _flip(x):
+    """Reverse the axes: a flax Dense kernel (in, out) <-> a Linear's
+    weight (out, in)."""
+    if torch.is_tensor(x):
+        return x.permute(*reversed(range(x.ndim)))
+    return np.transpose(np.asarray(x))
 
 
-def _lin(p, name, out):
-    out[f"{name}.weight"] = np.transpose(np.asarray(p["kernel"]))
-    if "bias" in p:
-        out[f"{name}.bias"] = np.asarray(p["bias"])
+def _from_hwio(x):
+    """A flax conv kernel HWIO -> OIHW."""
+    if torch.is_tensor(x):
+        return x.permute(3, 2, 0, 1)
+    return np.transpose(np.asarray(x), (3, 2, 0, 1))
 
 
-def _norm(p, name, out):
-    out[f"{name}.weight"] = np.asarray(p["scale"])
-    out[f"{name}.bias"] = np.asarray(p["bias"])
+def _to_hwio(x):
+    """OIHW, or a transformer projection's Linear layout (O, I), -> HWIO."""
+    if x.ndim == 2:
+        x = x[:, :, None, None]
+    if torch.is_tensor(x):
+        return x.permute(2, 3, 1, 0)
+    return np.transpose(np.asarray(x), (2, 3, 1, 0))
 
 
-def _gn32(p, name, out):
-    _norm(p["norm"], name, out)  # the JAX GroupNorm32 nests a child "norm"
+def _same(x):
+    return x if torch.is_tensor(x) else np.asarray(x)
 
 
-def _resnet(p, pfx, out):
-    _gn32(p["norm1"], f"{pfx}.norm1", out)
-    _conv(p["conv1"], f"{pfx}.conv1", out)
-    _gn32(p["norm2"], f"{pfx}.norm2", out)
-    _conv(p["conv2"], f"{pfx}.conv2", out)
-    if "time_emb_proj" in p:
-        _lin(p["time_emb_proj"], f"{pfx}.time_emb_proj", out)
-    if "conv_shortcut" in p:
-        _conv(p["conv_shortcut"], f"{pfx}.conv_shortcut", out)
+#: kind -> (JAX layout -> diffusers, diffusers -> JAX layout)
+_KINDS = {"conv": (_from_hwio, _to_hwio), "dense": (_flip, _flip),
+          "same": (_same, _same)}
 
 
-def _attn(p, pfx, out):
-    for proj in ("to_q", "to_k", "to_v"):
-        _lin(p[proj], f"{pfx}.{proj}", out)
-    _lin(p["to_out"], f"{pfx}.to_out.0", out)
+def _conv_rows(at: tuple, name: str) -> list:
+    return [((*at, "kernel"), f"{name}.weight", "conv"),
+            ((*at, "bias"), f"{name}.bias", "same")]
 
 
-def _transformer(p, pfx, depth, out):
-    _gn32(p["norm"], f"{pfx}.norm", out)
-    _conv(p["proj_in"], f"{pfx}.proj_in", out)
-    _conv(p["proj_out"], f"{pfx}.proj_out", out)
+def _dense_rows(at: tuple, name: str) -> list:
+    return [((*at, "kernel"), f"{name}.weight", "dense"),
+            ((*at, "bias"), f"{name}.bias", "same")]
+
+
+def _norm_rows(at: tuple, name: str) -> list:
+    return [((*at, "scale"), f"{name}.weight", "same"),
+            ((*at, "bias"), f"{name}.bias", "same")]
+
+
+def _gn32_rows(at: tuple, name: str) -> list:
+    # the JAX GroupNorm32 nests a child "norm"
+    return _norm_rows((*at, "norm"), name)
+
+
+def _resnet_rows(at: tuple, pfx: str) -> list:
+    return (_gn32_rows((*at, "norm1"), f"{pfx}.norm1")
+            + _conv_rows((*at, "conv1"), f"{pfx}.conv1")
+            + _gn32_rows((*at, "norm2"), f"{pfx}.norm2")
+            + _conv_rows((*at, "conv2"), f"{pfx}.conv2")
+            + _dense_rows((*at, "time_emb_proj"), f"{pfx}.time_emb_proj")
+            + _conv_rows((*at, "conv_shortcut"), f"{pfx}.conv_shortcut"))
+
+
+def _attn_rows(at: tuple, pfx: str) -> list:
+    rows = [r for proj in ("to_q", "to_k", "to_v")
+            for r in _dense_rows((*at, proj), f"{pfx}.{proj}")]
+    return rows + _dense_rows((*at, "to_out"), f"{pfx}.to_out.0")
+
+
+def _transformer_rows(at: tuple, pfx: str, depth: int) -> list:
+    rows = (_gn32_rows((*at, "norm"), f"{pfx}.norm")
+            + _conv_rows((*at, "proj_in"), f"{pfx}.proj_in")
+            + _conv_rows((*at, "proj_out"), f"{pfx}.proj_out"))
     for i in range(depth):
-        b, blk = f"{pfx}.transformer_blocks.{i}", p[f"blocks_{i}"]
+        b, blk = f"{pfx}.transformer_blocks.{i}", (*at, f"blocks_{i}")
         for n in ("norm1", "norm2", "norm3"):
-            _norm(blk[n], f"{b}.{n}", out)
-        _attn(blk["attn1"], f"{b}.attn1", out)
-        _attn(blk["attn2"], f"{b}.attn2", out)
-        _lin(blk["ff"]["proj_in"], f"{b}.ff.net.0.proj", out)
-        _lin(blk["ff"]["proj_out"], f"{b}.ff.net.2", out)
+            rows += _norm_rows((*blk, n), f"{b}.{n}")
+        rows += (_attn_rows((*blk, "attn1"), f"{b}.attn1")
+                 + _attn_rows((*blk, "attn2"), f"{b}.attn2")
+                 + _dense_rows((*blk, "ff", "proj_in"), f"{b}.ff.net.0.proj")
+                 + _dense_rows((*blk, "ff", "proj_out"), f"{b}.ff.net.2"))
+    return rows
 
 
-def unet_trunk(p, config: UNetConfig, out):
+def _trunk_rows(config: UNetConfig) -> list:
     """conv_in, the time (and text_time) embeddings, the down path and the
     mid block: the part a diffusers ControlNetModel shares with the UNet."""
-    _conv(p["conv_in"], "conv_in", out)
-    for mlp in ("time_embedding", "add_embedding"):
-        if mlp in p:  # add_embedding: SDXL text_time
-            _lin(p[mlp]["linear_1"], f"{mlp}.linear_1", out)
-            _lin(p[mlp]["linear_2"], f"{mlp}.linear_2", out)
+    rows = _conv_rows(("conv_in",), "conv_in")
+    for mlp in ("time_embedding", "add_embedding"):  # add_: SDXL text_time
+        for lin in ("linear_1", "linear_2"):
+            rows += _dense_rows((mlp, lin), f"{mlp}.{lin}")
     n = len(config.block_out_channels)
     for level in range(n):
         for j in range(config.layers_per_block):
-            _resnet(p[f"down_{level}_res_{j}"],
-                    f"down_blocks.{level}.resnets.{j}", out)
+            rows += _resnet_rows((f"down_{level}_res_{j}",),
+                                 f"down_blocks.{level}.resnets.{j}")
             if config.attn_levels[level]:
-                _transformer(p[f"down_{level}_attn_{j}"],
-                             f"down_blocks.{level}.attentions.{j}",
-                             config.depth(level), out)
+                rows += _transformer_rows(
+                    (f"down_{level}_attn_{j}",),
+                    f"down_blocks.{level}.attentions.{j}", config.depth(level))
         if level != n - 1:
-            _conv(p[f"down_{level}_downsample"]["conv"],
-                  f"down_blocks.{level}.downsamplers.0.conv", out)
-    _resnet(p["mid_res_0"], "mid_block.resnets.0", out)
-    _transformer(p["mid_attn"], "mid_block.attentions.0",
-                 config.depth(n - 1), out)
-    _resnet(p["mid_res_1"], "mid_block.resnets.1", out)
+            rows += _conv_rows((f"down_{level}_downsample", "conv"),
+                               f"down_blocks.{level}.downsamplers.0.conv")
+    return (rows + _resnet_rows(("mid_res_0",), "mid_block.resnets.0")
+            + _transformer_rows(("mid_attn",), "mid_block.attentions.0",
+                                config.depth(n - 1))
+            + _resnet_rows(("mid_res_1",), "mid_block.resnets.1"))
 
 
-def _unet(p, config: UNetConfig, out):
-    unet_trunk(p, config, out)
-    _gn32(p["conv_norm_out"], "conv_norm_out", out)
-    _conv(p["conv_out"], "conv_out", out)
+def _unet_rows(config: UNetConfig) -> list:
+    rows = (_trunk_rows(config)
+            + _gn32_rows(("conv_norm_out",), "conv_norm_out")
+            + _conv_rows(("conv_out",), "conv_out"))
     n = len(config.block_out_channels)
     for i in range(n):
         level = n - 1 - i
         for j in range(config.layers_per_block + 1):
-            _resnet(p[f"up_{level}_res_{j}"], f"up_blocks.{i}.resnets.{j}",
-                    out)
+            rows += _resnet_rows((f"up_{level}_res_{j}",),
+                                 f"up_blocks.{i}.resnets.{j}")
             if config.attn_levels[level]:
-                _transformer(p[f"up_{level}_attn_{j}"],
-                             f"up_blocks.{i}.attentions.{j}",
-                             config.depth(level), out)
+                rows += _transformer_rows((f"up_{level}_attn_{j}",),
+                                          f"up_blocks.{i}.attentions.{j}",
+                                          config.depth(level))
         if i != n - 1:
-            _conv(p[f"up_{level}_upsample"]["conv"],
-                  f"up_blocks.{i}.upsamplers.0.conv", out)
+            rows += _conv_rows((f"up_{level}_upsample", "conv"),
+                               f"up_blocks.{i}.upsamplers.0.conv")
+    return rows
 
 
-def _vae_attn(a, pfx, out):
-    _gn32(a["group_norm"], f"{pfx}.group_norm", out)
-    _attn(a, pfx, out)
-
-
-def _vae(p, config: VAEConfig, out):
+def _vae_rows(config: VAEConfig) -> list:
     n = len(config.block_out_channels)
+    rows = []
     for side in ("encoder", "decoder"):
-        s = p[side]
-        _conv(s["conv_in"], f"{side}.conv_in", out)
-        _gn32(s["conv_norm_out"], f"{side}.conv_norm_out", out)
-        _conv(s["conv_out"], f"{side}.conv_out", out)
-        _resnet(s["mid_res_0"], f"{side}.mid_block.resnets.0", out)
-        _resnet(s["mid_res_1"], f"{side}.mid_block.resnets.1", out)
-        _vae_attn(s["mid_attn"], f"{side}.mid_block.attentions.0", out)
-        if side == "encoder":
-            for level in range(n):
-                for j in range(config.layers_per_block):
-                    _resnet(s[f"down_{level}_res_{j}"],
-                            f"{side}.down_blocks.{level}.resnets.{j}", out)
-                if level != n - 1:
-                    _conv(s[f"down_{level}_downsample"]["conv"],
-                          f"{side}.down_blocks.{level}.downsamplers.0.conv",
-                          out)
-        else:
-            for i in range(n):
-                level = n - 1 - i
-                for j in range(config.layers_per_block + 1):
-                    _resnet(s[f"up_{level}_res_{j}"],
-                            f"{side}.up_blocks.{i}.resnets.{j}", out)
-                if i != n - 1:
-                    _conv(s[f"up_{level}_upsample"]["conv"],
-                          f"{side}.up_blocks.{i}.upsamplers.0.conv", out)
-    _conv(p["quant_conv"], "quant_conv", out)
-    _conv(p["post_quant_conv"], "post_quant_conv", out)
+        at = (side,)
+        rows += (_conv_rows((*at, "conv_in"), f"{side}.conv_in")
+                 + _gn32_rows((*at, "conv_norm_out"), f"{side}.conv_norm_out")
+                 + _conv_rows((*at, "conv_out"), f"{side}.conv_out")
+                 + _resnet_rows((*at, "mid_res_0"),
+                                f"{side}.mid_block.resnets.0")
+                 + _resnet_rows((*at, "mid_res_1"),
+                                f"{side}.mid_block.resnets.1")
+                 + _gn32_rows((*at, "mid_attn", "group_norm"),
+                              f"{side}.mid_block.attentions.0.group_norm")
+                 + _attn_rows((*at, "mid_attn"),
+                              f"{side}.mid_block.attentions.0"))
+        for i in range(n):
+            # the encoder's levels go down in order, the decoder's up
+            level, blocks, kind, resample = (
+                (i, f"down_blocks.{i}", "down", "downsample")
+                if side == "encoder"
+                else (n - 1 - i, f"up_blocks.{i}", "up", "upsample"))
+            count = config.layers_per_block + (side == "decoder")
+            for j in range(count):
+                rows += _resnet_rows((*at, f"{kind}_{level}_res_{j}"),
+                                     f"{side}.{blocks}.resnets.{j}")
+            if i != n - 1:
+                rows += _conv_rows((*at, f"{kind}_{level}_{resample}", "conv"),
+                                   f"{side}.{blocks}.{resample}rs.0.conv")
+    return (rows + _conv_rows(("quant_conv",), "quant_conv")
+            + _conv_rows(("post_quant_conv",), "post_quant_conv"))
 
 
-def _text(p, config: CLIPTextConfig, out):
-    out["text_model.embeddings.token_embedding.weight"] = np.asarray(
-        p["token_embedding"]["embedding"])
-    out["text_model.embeddings.position_embedding.weight"] = np.asarray(
-        p["position_embedding"]["embedding"])
-    _norm(p["final_layer_norm"], "text_model.final_layer_norm", out)
+def _text_rows(config: CLIPTextConfig) -> list:
+    rows = [(("token_embedding", "embedding"),
+             "text_model.embeddings.token_embedding.weight", "same"),
+            (("position_embedding", "embedding"),
+             "text_model.embeddings.position_embedding.weight", "same")]
+    rows += _norm_rows(("final_layer_norm",), "text_model.final_layer_norm")
     for i in range(config.num_layers):
-        b, blk = f"text_model.encoder.layers.{i}", p[f"layers_{i}"]
-        _norm(blk["layer_norm1"], f"{b}.layer_norm1", out)
+        b, blk = f"text_model.encoder.layers.{i}", (f"layers_{i}",)
+        rows += _norm_rows((*blk, "layer_norm1"), f"{b}.layer_norm1")
         for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _lin(blk[proj], f"{b}.self_attn.{proj}", out)
-        _norm(blk["layer_norm2"], f"{b}.layer_norm2", out)
-        _lin(blk["fc1"], f"{b}.mlp.fc1", out)
-        _lin(blk["fc2"], f"{b}.mlp.fc2", out)
-    if "text_projection" in p:
-        _lin(p["text_projection"], "text_projection", out)
+            rows += _dense_rows((*blk, proj), f"{b}.self_attn.{proj}")
+        rows += (_norm_rows((*blk, "layer_norm2"), f"{b}.layer_norm2")
+                 + _dense_rows((*blk, "fc1"), f"{b}.mlp.fc1")
+                 + _dense_rows((*blk, "fc2"), f"{b}.mlp.fc2"))
+    return rows + _dense_rows(("text_projection",), "text_projection")
 
 
-def _taesd_block(p, pfx, out):
-    for k in range(3):
-        _conv(p[f"conv_{k}"], f"{pfx}.conv.{2 * k}", out)
+def _taesd_block_rows(at: tuple, pfx: str) -> list:
+    return [r for k in range(3)
+            for r in _conv_rows((*at, f"conv_{k}"), f"{pfx}.conv.{2 * k}")]
 
 
-def _taesd(p, config: TAESDConfig, out):
-    """The decoder's Sequential: conv_in, ReLU, [blocks, Upsample, conv] a
-    stage, block_out, conv_out; or the encoder's (its tree has
-    ``block_in``): conv_in, block_in, [stride-2 conv, blocks] a stage,
-    conv_out."""
-    if "block_in" in p:
-        _conv(p["conv_in"], "encoder.layers.0", out)
-        _taesd_block(p["block_in"], "encoder.layers.1", out)
+def _taesd_rows(config: TAESDConfig, encoder: bool) -> list:
+    """The encoder's Sequential: conv_in, block_in, [stride-2 conv, blocks]
+    a stage, conv_out; the decoder's: conv_in, ReLU, [blocks, Upsample,
+    conv] a stage, block_out, conv_out."""
+    if encoder:
+        rows = (_conv_rows(("conv_in",), "encoder.layers.0")
+                + _taesd_block_rows(("block_in",), "encoder.layers.1"))
         i = 2
         for s in range(config.num_stages):
-            _conv(p[f"down_{s}_conv"], f"encoder.layers.{i}", out)
+            rows += _conv_rows((f"down_{s}_conv",), f"encoder.layers.{i}")
             i += 1
             for j in range(config.blocks_per_stage):
-                _taesd_block(p[f"down_{s}_block_{j}"],
-                             f"encoder.layers.{i}", out)
+                rows += _taesd_block_rows((f"down_{s}_block_{j}",),
+                                          f"encoder.layers.{i}")
                 i += 1
-        _conv(p["conv_out"], f"encoder.layers.{i}", out)
-        return
-    _conv(p["conv_in"], "decoder.layers.0", out)
+        return rows + _conv_rows(("conv_out",), f"encoder.layers.{i}")
+    rows = _conv_rows(("conv_in",), "decoder.layers.0")
     i = 2
     for s in range(config.num_stages):
         for j in range(config.blocks_per_stage):
-            _taesd_block(p[f"up_{s}_block_{j}"], f"decoder.layers.{i}", out)
+            rows += _taesd_block_rows((f"up_{s}_block_{j}",),
+                                      f"decoder.layers.{i}")
             i += 1
-        _conv(p[f"up_{s}_conv"], f"decoder.layers.{i + 1}", out)
+        rows += _conv_rows((f"up_{s}_conv",), f"decoder.layers.{i + 1}")
         i += 2
-    _taesd_block(p["block_out"], f"decoder.layers.{i}", out)
-    _conv(p["conv_out"], f"decoder.layers.{i + 1}", out)
+    return (rows + _taesd_block_rows(("block_out",), f"decoder.layers.{i}")
+            + _conv_rows(("conv_out",), f"decoder.layers.{i + 1}"))
+
+
+def _vision_rows(at: tuple, pre: str, num_layers: int) -> list:
+    rows = [((*at, "patch_embedding", "kernel"),
+             f"{pre}embeddings.patch_embedding.weight", "conv"),
+            ((*at, "position_embedding", "embedding"),
+             f"{pre}embeddings.position_embedding.weight", "same"),
+            ((*at, "class_embedding"), f"{pre}embeddings.class_embedding",
+             "same")]
+    rows += (_norm_rows((*at, "pre_layrnorm"), f"{pre}pre_layrnorm")
+             + _norm_rows((*at, "post_layernorm"), f"{pre}post_layernorm"))
+    for i in range(num_layers):
+        b, blk = f"{pre}encoder.layers.{i}", (*at, f"layers_{i}")
+        rows += (_norm_rows((*blk, "layer_norm1"), f"{b}.layer_norm1")
+                 + _norm_rows((*blk, "layer_norm2"), f"{b}.layer_norm2"))
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            rows += _dense_rows((*blk, proj), f"{b}.self_attn.{proj}")
+        rows += (_dense_rows((*blk, "fc1"), f"{b}.mlp.fc1")
+                 + _dense_rows((*blk, "fc2"), f"{b}.mlp.fc2"))
+    return rows
+
+
+def _safety_rows(config: SafetyConfig) -> list:
+    rows = (_vision_rows(("vision_model",), "vision_model.vision_model.",
+                         config.vision.num_layers)
+            + _dense_rows(("visual_projection",), "visual_projection"))
+    return rows + [((name,), name, "same") for name in (
+        "concept_embeds", "concept_embeds_weights", "special_care_embeds",
+        "special_care_embeds_weights")]
+
+
+def _rrdbnet_rows(config: RRDBNetConfig) -> list:
+    rows = [r for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                           "conv_hr", "conv_last")
+            for r in _conv_rows((name,), name)]
+    for i in range(config.num_block):
+        for r in (1, 2, 3):
+            for c in range(1, 6):
+                rows += _conv_rows((f"body_{i}", f"rdb{r}", f"conv{c}"),
+                                   f"body.{i}.rdb{r}.conv{c}")
+    return rows
+
+
+_MAPPINGS = {UNetConfig: _unet_rows, VAEConfig: _vae_rows,
+             CLIPTextConfig: _text_rows, TAESDConfig: _taesd_rows,
+             SafetyConfig: _safety_rows, RRDBNetConfig: _rrdbnet_rows}
+_MISSING = object()
+
+
+def _lookup(tree, path: tuple):
+    for k in path:
+        if k not in tree:
+            return _MISSING
+        tree = tree[k]
+    return tree
+
+
+def _fill(tree, rows: list, out: dict) -> dict:
+    """The diffusers-named leaves of ``rows`` present in ``tree``."""
+    for path, key, kind in rows:
+        leaf = _lookup(tree, path)
+        if leaf is not _MISSING:
+            out[key] = _KINDS[kind][0](leaf)
+    return out
+
+
+# one block's rows filled from its own subtree: the layer tests map single
+# blocks, ControlNet and IP-Adapter trees reuse the trunk and the tower
+def _conv(p, name, out):
+    _fill(p, _conv_rows((), name), out)
+
+
+def _lin(p, name, out):
+    _fill(p, _dense_rows((), name), out)
+
+
+def _norm(p, name, out):
+    _fill(p, _norm_rows((), name), out)
+
+
+def _gn32(p, name, out):
+    _fill(p, _gn32_rows((), name), out)
+
+
+def _resnet(p, pfx, out):
+    _fill(p, _resnet_rows((), pfx), out)
+
+
+def _attn(p, pfx, out):
+    _fill(p, _attn_rows((), pfx), out)
+
+
+def _vae_attn(p, pfx, out):
+    _fill(p, _gn32_rows(("group_norm",), f"{pfx}.group_norm")
+          + _attn_rows((), pfx), out)
+
+
+def _transformer(p, pfx, depth, out):
+    _fill(p, _transformer_rows((), pfx, depth), out)
+
+
+def unet_trunk(p, config: UNetConfig, out):
+    """The trunk's rows (``_trunk_rows``) of the UNet tree ``p`` into
+    ``out``."""
+    _fill(p, _trunk_rows(config), out)
 
 
 def clip_vision(p, pre: str, num_layers: int, out):
     """The JAX ``CLIPVisionEncoder`` tree -> transformers' tower names
     under ``pre`` (``vision_model.`` in ``CLIPVisionModelWithProjection``,
     ``vision_model.vision_model.`` in the safety checker)."""
-    out[f"{pre}embeddings.patch_embedding.weight"] = np.transpose(
-        np.asarray(p["patch_embedding"]["kernel"]), (3, 2, 0, 1))
-    out[f"{pre}embeddings.position_embedding.weight"] = np.asarray(
-        p["position_embedding"]["embedding"])
-    out[f"{pre}embeddings.class_embedding"] = np.asarray(p["class_embedding"])
-    _norm(p["pre_layrnorm"], f"{pre}pre_layrnorm", out)
-    _norm(p["post_layernorm"], f"{pre}post_layernorm", out)
-    for i in range(num_layers):
-        b, blk = f"{pre}encoder.layers.{i}", p[f"layers_{i}"]
-        _norm(blk["layer_norm1"], f"{b}.layer_norm1", out)
-        _norm(blk["layer_norm2"], f"{b}.layer_norm2", out)
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _lin(blk[proj], f"{b}.self_attn.{proj}", out)
-        _lin(blk["fc1"], f"{b}.mlp.fc1", out)
-        _lin(blk["fc2"], f"{b}.mlp.fc2", out)
+    _fill(p, _vision_rows((), pre, num_layers), out)
 
 
-def _safety(p, config: SafetyConfig, out):
-    clip_vision(p["vision_model"], "vision_model.vision_model.",
-                config.vision.num_layers, out)
-    _lin(p["visual_projection"], "visual_projection", out)
-    for name in ("concept_embeds", "concept_embeds_weights",
-                 "special_care_embeds", "special_care_embeds_weights"):
-        out[name] = np.asarray(p[name])
-
-
-def _rrdbnet(p, config: RRDBNetConfig, out):
-    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
-                 "conv_hr", "conv_last"):
-        _conv(p[name], name, out)
-    for i in range(config.num_block):
-        for r in (1, 2, 3):
-            for c in range(1, 6):
-                _conv(p[f"body_{i}"][f"rdb{r}"][f"conv{c}"],
-                      f"body.{i}.rdb{r}.conv{c}", out)
-
-
-_MAPPINGS = {UNetConfig: _unet, VAEConfig: _vae, CLIPTextConfig: _text,
-             TAESDConfig: _taesd, SafetyConfig: _safety,
-             RRDBNetConfig: _rrdbnet}
+def _rows(config, encoder: bool) -> list:
+    if isinstance(config, TAESDConfig):
+        return _taesd_rows(config, encoder)
+    return _MAPPINGS[type(config)](config)
 
 
 def from_jax_params(tree: dict, config) -> dict[str, np.ndarray]:
     """JAX flax variables ``{"params": ...}`` of a UNet, VAE, CLIP text
     encoder, TAESD decoder or encoder, safety checker or RRDBNet -> the
-    diffusers- (basicsr-) named state dict, chosen by the config's type."""
-    out: dict[str, np.ndarray] = {}
-    _MAPPINGS[type(config)](tree["params"], config, out)
-    return out
+    diffusers- (basicsr-) named state dict, chosen by the config's type.
+    Tensor leaves give tensor views, array leaves numpy arrays."""
+    p = tree["params"]
+    return _fill(p, _rows(config, "block_in" in p), {})
+
+
+def to_jax_params(state_dict: dict, config) -> dict:
+    """The inverse of ``from_jax_params``: a diffusers- (basicsr-) named
+    state dict -> the JAX package's flax variables ``{"params": ...}``,
+    kernels HWIO and (in, out).  A TAESD dict holds the decoder's names or
+    the encoder's, not both.  A key the table does not map raises."""
+    encoder = any(k.startswith("encoder.") for k in state_dict)
+    tree: dict = {}
+    used = set()
+    for path, key, kind in _rows(config, encoder):
+        if key in state_dict:
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = _KINDS[kind][1](state_dict[key])
+            used.add(key)
+    left = sorted(state_dict.keys() - used)
+    if left:
+        raise KeyError(f"{type(config).__name__}: no JAX path for {left}")
+    return {"params": tree}
 
 
 #: the transformers' channel projections, stored by diffusers as 1x1
@@ -329,7 +456,8 @@ def load_state_dict(module: nn.Module, state_dict: dict,
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{k}: shape {tuple(t.shape)}, the module has "
                              f"{tuple(ref.shape)}")
-        tensors[k] = t.to(dtype or ref.dtype)
+        # contiguous: a transposed view would pick other kernels
+        tensors[k] = t.to(dtype or ref.dtype).contiguous()
     module.load_state_dict(tensors, strict=True, assign=True)
     return module
 

@@ -137,9 +137,11 @@ def test_port_never_imports_jax(tmp_path):
     encode, a walk with a ControlNet, an IP-Adapter and prompt
     weighting on a bundle with a LoRA and a textual-inversion file merged,
     a walk with the safety checker, Real-ESRGAN upsampling, ToMe and FreeU,
-    ``generate_images``, and a step of each trainer of the training package
-    with a LoRA ``.npz`` saved and merged, import neither jax nor the JAX
-    package, not even its host-only modules."""
+    ``generate_images``, a step of each trainer of the training package
+    with a LoRA ``.npz`` saved and merged, a bundle saved and loaded in the
+    native format, every frame metric with LPIPS, the parity gate and
+    ``validate`` import neither jax, flax, msgpack nor the JAX package, not
+    even its host-only modules."""
     from safetensors.numpy import save_file
     wav = click_track(tmp_path / "beat.wav")
     rng = np.random.default_rng(0)
@@ -237,8 +239,40 @@ def test_port_never_imports_jax(tmp_path):
         "training.VAETrainer(tm, device=cpu).step(torch.rand(1, 16, 16, 3))\n"
         "training.LCMDistiller(tm, device=cpu).step(lat, ctx, ctx[:1])\n"
         "training.make_structured_dataset(8)\n"
+        "import numpy as np\n"
+        "from stable_diffusion_videos_tpu_torch.utils import (lpips, "
+        "metrics, parity_gate, validate)\n"
+        f"b = SDModels.tiny(taesd=True, with_safety=True).save("
+        f"{str(tmp_path / 'bundle')!r})\n"
+        "lb = SDModels.load(b)\n"
+        "assert lb.param_count() == SDModels.tiny(taesd=True, "
+        "with_safety=True).param_count()\n"
+        f"lp = {str(tmp_path / 'lpips.pth')!r}\n"
+        "torch.save(lpips.LPIPS('alex').state_dict(), lp)\n"
+        "f = np.random.default_rng(0).random((3, 32, 32, 3))\n"
+        "q = metrics.quality_vs_exact(f, f[::-1], lpips_weights=lp, "
+        "lpips_device='cpu')\n"
+        "assert 'lpips_mean' in q and metrics.psnr(f[0], f[1]) > 0\n"
+        "metrics.psnr_spread_by_reference({'a': q, 'b_vs_a': q})\n"
+        "metrics.temporal_flicker(f, lpips_weights=lp, lpips_device='cpu')\n"
+        "parity_gate.GATE_CONFIG.update(num_inference_steps=2)\n"
+        "gp = P(lb, torch.device('cpu'))\n"
+        "gp.walk(prompts=list(parity_gate.GATE_PROMPTS), seeds=list("
+        "parity_gate.GATE_SEEDS), height=32, width=32, make_video=False, "
+        f"output_dir={str(tmp_path)!r}, name='ref', "
+        "**parity_gate.GATE_CONFIG)\n"
+        f"ref = {str(tmp_path / 'ref')!r}\n"
+        "assert metrics.compare_frame_dirs(ref, ref, lpips_weights=lp, "
+        "lpips_device='cpu')['lpips_mean'] == 0\n"
+        "assert parity_gate.run_parity_gate(gp, ref, "
+        f"{str(tmp_path / 'gate')!r}, lpips_weights=lp, height=32, "
+        "width=32)['pass']\n"
+        f"assert validate.run_validation(b, {str(tmp_path / 'val')!r}, "
+        "reference_frames=ref, lpips_weights=lp, num_inference_steps=2, "
+        "height=32, width=32, step_cache_ks=(2,), device='cpu')['pass']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'stable_diffusion_videos_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'msgpack', "
+        "'stable_diffusion_videos_tpu'))\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "EAGER_IMPORT"}
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
