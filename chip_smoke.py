@@ -15,14 +15,18 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    bound: the least time the card could take (``bound``, by operations or
    by bytes) and the kernel's share of it.  bf16 attention is also held
    against the output's own scale, beside what that check reads for two
-   planted faults.  Also the host time of a bf16 attention call's TMA
-   tensor maps;
+   planted faults.  The fp32 GroupNorm-backward rows are held to the plain
+   backward computed in fp64; the backward rows and the split-statistics
+   GroupNorm's are also timed queued behind a device sleep (their device
+   time).  Also the host time of a bf16 attention call's TMA tensor maps;
 4. golden: the full-geometry SD 1.x UNet, VAE decoder and VAE encoder (its
    posterior's mean and log-variance) in fp32 (TF32 off) against
    ``tests/goldens/sd1_full_geometry.npz``, which the JAX package's
-   reference produced;
+   reference produced (its weights drawn on the host while phase 2's nvcc
+   runs, as phase 5's bundle is drawn on the card);
 5. main path: ``walk()`` at 512², pndm-50, CFG 7.5, batch 8, two dispatches,
-   on random bf16 weights; the kernels' launch counts come from this run,
+   on random bf16 weights (N(0, 0.02), drawn on the card from seeded
+   generators); the kernels' launch counts come from this run,
    with the launches of each shape, every one of which phase 3 checks;
 6. fewstep: the few-step operating point on the same weights: ``walk()``
    with dpm-20 x DeepCache ``step_cache=2`` under "ends" (16 frames, warm
@@ -43,7 +47,7 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    frames) in 64-latent tiles overlapping by 16; each run's launches by
    shape, every one of which phase 3 checks;
 8. families: SD 2.x and SDXL-base at their published widths on random bf16
-   weights (each bundle's build time printed): SDXL-base ``walk()`` at
+   weights drawn on the card (each bundle's build time printed): SDXL-base ``walk()`` at
    1024², 2 prompts x 2 frames at its default batch of 1, pndm-50, CFG 7.5,
    warm seconds of one frame's dispatch, and one ``fast=True`` dispatch
    (``step_cache=2``); SD 2.1 768-v ``walk()`` at 768², 2 prompts x 4
@@ -71,9 +75,11 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    1, with build time and warm seconds (least of 2).  Each run's launches by
    shape, every one of which phase 3 checks (this phase's new rows in bf16
    only);
-10. addons: the conditioning add-ons on phase 5's bundle, pndm-50, CFG 7.5,
+10. addons: the conditioning add-ons on phase 5's bundle, pndm-25
+   (``LATER_STEPS``, as in phases 11 and 15), CFG 7.5,
    batch 8, 512², each add-on drawn at its published widths (bf16 but the
-   IP-Adapter's projection and image tower, fp32): a ControlNet
+   IP-Adapter's projection and image tower, fp32; the ControlNets and the
+   tower on the card from seeded generators): a ControlNet
    (lllyasviel/sd-controlnet-canny's geometry) walk of 16 frames on one
    edge map and its warm dispatch beside a plain one (in turns); one
    dispatch with two ControlNets under ``guess_mode``; vid2vid of 16 frames
@@ -89,10 +95,11 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    phase 3 checks (the IP rows at Sk=4 and the weighted rows at Sk=154,
    bf16);
 11. post: post-processing and the opt-in levers on phase 5's bundle at
-   512², pndm-50, CFG 7.5, batch 8, with a safety checker at the geometry
+   512², pndm-25, CFG 7.5, batch 8, with a safety checker at the geometry
    of CompVis/stable-diffusion-safety-checker (OpenAI ViT-L/14, bf16 tower,
-   fp32 head) and a Real-ESRGAN x4plus RRDBNet (16.7M parameters), both
-   drawn from numpy seeds, the net written as a ``.pth`` under
+   fp32 head) drawn on the card from a seeded generator and a Real-ESRGAN
+   x4plus RRDBNet (16.7M parameters) from a numpy seed, the net written as
+   a ``.pth`` under
    ``params_ema`` and loaded back through ``upsample_weights=``: the
    upsampler in fp32 on the card against the CPU on a 32² crop (and two
    x2plus-shaped nets, 12 input channels, under ``params_ema`` and
@@ -124,8 +131,9 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    /img2img (equal to ``img2img()``) and /inpaint of a 512² PNG, /generate
    beside /warmup of dpm (the pndm image); a 16-request /generate under a
    memory cap between the batch-8 and batch-16 peaks, split in two and
-   within 2/255 of the uncapped images; then ``python3 -m
+   within 2/255 of the uncapped images; and ``python3 -m
    stable_diffusion_videos_tpu_torch serve --checkpoint DIR`` as a process,
+   started with the phase so that it loads beside the in-process server,
    its image equal to the in-process server's.  Each counted run's launches
    by shape, every one of which phase 3 checks (the rows at UNet batch 2
    and VAE batch 1, bf16);
@@ -159,8 +167,9 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    bundle saved through ``SDModels.save`` and loaded back onto the card
    (every parameter and an 8-frame pndm-50 dispatch bit-equal; the
    bundle's size, save and load seconds), then ``convert`` as a process on
-   an SD 1.5-layout directory (its bundle bit-equal to ``from_pretrained``
-   of the directory, both timed); the committed trained checkpoints
+   an SD 1.5-layout directory, run beside the trained checkpoints' runs
+   (its bundle bit-equal to ``from_pretrained`` of the directory, both
+   timed); the committed trained checkpoints
    (``tests/goldens/structured_bundle``, ``structured_lcm_bundle``) read by
    ``SDModels.load`` alone, onto the card in fp32 (TF32 off) and onto the
    CPU, their 8 structured prompts denoised under pndm-50, dpm-20 x
@@ -176,29 +185,45 @@ NVIDIA GPU and check it, phase by phase.  Run from the repository root:
    by shape, every one of which phase 3 checks (the trained checkpoints'
    rows in fp32 and bf16);
 15. mesh: the multi-card layer (``parallel/``) on phase 5's bundle, saved
-   and loaded by each rank, its ranks child processes of this script
-   (``--mesh-child``, each waited for within ``MESH_CHILD_TIMEOUT``; a rank
-   that fails fails the phase; bit-equality is held within one process,
-   since this process, after the other phases, has rounded apart from a
-   fresh one): one rank over
-   NCCL, its 8-frame pndm-50 dispatch bit-equal to a one-rank engine's;
+   and loaded by each rank of two, child processes of this script
+   (``--mesh-child``, started first, so that they set up while this
+   process works, and waited for within ``MESH_CHILD_TIMEOUT``; a rank that
+   fails stops the others and fails the phase; bit-equality is held within
+   one process): one rank over NCCL in this process, its 8-frame pndm-25
+   dispatch bit-equal to a one-rank engine's;
    two ranks sharing the card over gloo (their bytes card to card by CUDA
    IPC), and two ranks on two cards over NCCL when the host has them: a
-   data-parallel pndm-50 walk of 16 frames (rank 0's video 16 frames) and
+   data-parallel pndm-25 walk of 16 frames (rank 0's video 16 frames) and
    its dispatch again, warm, equal to the walk's PNGs, each rank's rows
    bit-equal to a one-rank engine's dispatch of them; the safety flags of
    5 frames over
    data 2 equal to one rank's (a tiny checker with a planted concept);
    tensor parallel and spatially sharded over model 2: the final latents
    and the frames of an fp32 ddim-2 dispatch (TF32 off) within
-   tests/test_parallel.py's tolerances of one rank's, and a bf16 pndm-50
+   tests/test_parallel.py's tolerances of one rank's, and a bf16 pndm-25
    dispatch of 8 frames at PSNR >= 40 dB and SSIM >= 0.95 of one rank's
    (phase quality's bf16 bounds), each TP rank's memory after load within
    2% of ``param_bytes_per_device``; every launch key of every rank one
    that phase 3 checks (the TP attention at 4 heads, its norm2 at 16
    groups, the spatial attention at Sq = S/2, the split-statistics
    GroupNorm's two kernels).  Dispatch seconds of each layout are printed,
-   labelled: two ranks on one card are no scaling figure.
+   labelled: two ranks on one card are no scaling figure.  Then, in the
+   same ranks, training over data 2 (``train_gloo2``, and ``train_nccl2``
+   on two cards), the JAX trainers' layout: the UNet trainer in fp32 (TF32
+   off) at 32² latents, global batch 4, clipping every step, its averaged
+   gradient against one rank's on the whole batch (cosine, max error over
+   the largest) and its masters after 2 steps within a twentieth of lr a
+   step of one rank's; then in bf16 the UNet trainer (64² latents, global batch
+   4, EMA; a checkpoint written by rank 0 after step 1 and restored on
+   both ranks, the step after it bit-equal to the uninterrupted step 2),
+   a rank-8 LoRA, the VAE trainer at 512² (global batch 2) and LCM
+   distillation (global batch 4), each rank's masters, Adam moments, EMA
+   and LCM target bit-equal to the other's after every step, the losses
+   finite and equal; warm step seconds, each rank's peak memory and the
+   gradient all-reduce's ms a step printed.  The one NCCL rank also takes
+   a bf16 UNet training step, bit-equal to the trainer without a mesh.
+   Every counted training run launches both backward kernels and no plain
+   backward.
 
 Every failure raises, so the script exits non-zero.  The last two lines are
 the kernels' JSON record (the two forward kernels, the two backward ones
@@ -447,6 +472,14 @@ TRAIN_FP32_ATTN_SHAPES = [(1, sq // 4, sk if sk == 77 else sk // 4, 8, d)
                           for sq, sk, d in UNET_ATTN]
 TRAIN_FP32_GN_SHAPES = [((1, c, h, w), eps, silu)
                         for c, h, w, eps, silu in scaled_gn(UNET_GN, 1, 2)]
+# phase mesh's fp32 training check: the UNet at 32² latents on each of two
+# data ranks (2 rows of a global batch of 4) and on one rank (the whole
+# batch), forward and backward, fp32 weights.  Phase 3 draws these rows'
+# inputs from a generator of their own, so the earlier rows keep theirs
+MESH_TRAIN_FP32_ATTN_SHAPES = [(b, *s[1:]) for b in (2, 4)
+                               for s in TRAIN_FP32_ATTN_SHAPES]
+MESH_TRAIN_FP32_GN_SHAPES = [((b, *shape[1:]), eps, silu) for b in (2, 4)
+                             for shape, eps, silu in TRAIN_FP32_GN_SHAPES]
 # the backward kernels' keys, in bf16 (each also checked in fp32): the UNet
 # at batch 2, the VAE's mid-block attention and its encoder's and decoder's
 # GroupNorms at batch 1
@@ -543,9 +576,13 @@ MESH_GN_SHAPES = (
 # width of each UNet GroupNorm, 32 groups, the partials of 2 ranks merged
 MESH_SPLIT_GN = list(dict.fromkeys(
     ((16, c, h, w // MESH_RANKS), silu) for c, h, w, _, silu in UNET_GN))
+# the sampler steps of phases addons, post and mesh: pndm-25, half of
+# phase 5's 50 (their checks hold at any depth: bit-equal, in turns, against
+# one rank), so that the smoke stays well inside its time limit
+LATER_STEPS = 25
 # the mesh phase's bounds: data-parallel frames bit-equal to one rank's;
 # the fp32 final latents (TF32 off, ddim-2) at tests/test_parallel.py's
-# tolerances; the bf16 pndm-50 frames at phase quality's bf16 bounds
+# tolerances; the bf16 pndm-25 frames at phase quality's bf16 bounds
 MESH_TP_TOL = dict(atol=2e-4, rtol=1e-3)
 MESH_SPATIAL_TOL = dict(atol=3e-4, rtol=2e-3)
 MESH_BF16_TOL = dict(psnr_mean=40.0, ssim_mean=0.95)
@@ -553,6 +590,20 @@ MESH_BF16_TOL = dict(psnr_mean=40.0, ssim_mean=0.95)
 MESH_MEMORY_RTOL = 0.02
 # seconds a mesh child may take (its process group's timeout is shorter)
 MESH_CHILD_TIMEOUT = 420
+# phase mesh's training over data 2 (the JAX trainers' layout): the fp32
+# check's clip norm, far below the gradient's, so that every step clips;
+# there the clipped elements sit near Adam's eps, which keeps a gradient
+# element that the two sums' orders round apart from flipping a step of lr
+MESH_TRAIN_FP32_CLIP = 1e-3
+# the averaged fp32 gradient against one rank's on the same global batch
+# (phase train's card-against-CPU bounds on the whole tree), and the masters
+# after 2 steps against one rank's within a twentieth of lr a step (the CPU
+# suite's Adam bound, tests/test_torch_training.py)
+MESH_TRAIN_GRAD_TOL = dict(cosine=1.0 - 1e-4, max_err=1e-5)
+MESH_TRAIN_ADAM_SHARE = 0.05
+# its sides: the fp32 check's latents, the bf16 UNet's, LoRA's and LCM's
+# latents, the VAE's images
+MESH_TRAIN_SIDES = dict(fp32=32, latents=64, images=512)
 
 # the trained checkpoints' frames on the card (fp32, TF32 off) against the
 # CPU's: the bounds the CPU suite holds the port to against the JAX package
@@ -670,7 +721,7 @@ def phase_build():
             raise AssertionError(f"{kernel} lacks {needed}: {found}")
 
 
-def time_ms(torch, fn, warmup: int = 2, window_ms: float = 20.0) -> float:
+def time_ms(torch, fn, warmup: int = 2, window_ms: float = 10.0) -> float:
     """Mean ms a call over back-to-back calls between two CUDA events: 5
     to 200 of them, as many as fill about window_ms (a call of tens of
     microseconds is otherwise read off a handful of launches)."""
@@ -907,14 +958,18 @@ def phase_kernels(torch):
     # rows keep the inputs they have always had
     g_mesh = torch.Generator(device=dev).manual_seed(14)
     mesh_rows = set(MESH_ATTN_SHAPES) | {s_ for s_, *_ in MESH_GN_SHAPES}
+    # and the mesh's fp32 training rows from theirs
+    g_train = torch.Generator(device=dev).manual_seed(15)
     lib = build.library()
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                           bound_ms=0.0, bound_by={}, rows={})
                for name in ("flash_attention", "groupnorm_silu",
                             "flash_attention_bwd", "groupnorm_silu_bwd",
                             "groupnorm_stats", "groupnorm_apply")}
-    # the backward rows' device time, queued behind a device sleep
-    queued_sum = {"flash_attention_bwd": 0.0, "groupnorm_silu_bwd": 0.0}
+    # the backward rows' and the split GroupNorm's device time, queued
+    # behind a device sleep
+    queued_sum = {"flash_attention_bwd": 0.0, "groupnorm_silu_bwd": 0.0,
+                  "groupnorm_stats": 0.0, "groupnorm_apply": 0.0}
     # the same sums over the rows phase 8's families and phase 9's edit
     # paths add
     groups = {
@@ -965,8 +1020,11 @@ def phase_kernels(torch):
                                 if dt == torch.bfloat16
                                 else TRAIN_FP32_ATTN_SHAPES) \
             + QUALITY_ATTN_SHAPES + MESH_ATTN_SHAPES
-        for b, sq, sk, h, d in shapes:
-            rg = g_mesh if (b, sq, sk, h, d) in mesh_rows else g
+        train_rows = (MESH_TRAIN_FP32_ATTN_SHAPES if dt == torch.float32
+                      else [])
+        for b, sq, sk, h, d in shapes + train_rows:
+            rg = (g_mesh if (b, sq, sk, h, d) in mesh_rows
+                  else g_train if (b, sq, sk, h, d) in train_rows else g)
             q = torch.randn(b, sq, h, d, device=dev, generator=rg).to(dt)
             k = torch.randn(b, sk, h, d, device=dev, generator=rg).to(dt)
             v = torch.randn(b, sk, h, d, device=dev, generator=rg).to(dt)
@@ -1018,16 +1076,18 @@ def phase_kernels(torch):
             print(f"host: a bf16 attention call encodes its three TMA "
                   f"tensor maps in {us:.2f} us")
             del q
-        for shape, eps, silu, n_groups, w_dt in (
-                [(*c, 32, dt) for c in GN_SHAPES]
-                + [(*c, 32, dt) for c in (FAMILY_GN_SHAPES + EDIT_GN_SHAPES
-                                          + SERVE_GN_SHAPES + TRAIN_GN_SHAPES
-                                          if dt == torch.bfloat16
-                                          else TRAIN_FP32_GN_SHAPES)]
-                + [(*c, 32, dt) for c in QUALITY_GN_SHAPES]
-                + [(*c, dt) for c in MESH_GN_SHAPES]
-                + [(*c, 32, torch.float32) for c in GN_EXTRA]):
-            rg = g_mesh if n_groups != 32 else g
+        for shape, eps, silu, n_groups, w_dt, rg in (
+                [(*c, 32, dt, g) for c in GN_SHAPES]
+                + [(*c, 32, dt, g) for c in (
+                    FAMILY_GN_SHAPES + EDIT_GN_SHAPES + SERVE_GN_SHAPES
+                    + TRAIN_GN_SHAPES if dt == torch.bfloat16
+                    else TRAIN_FP32_GN_SHAPES)]
+                + [(*c, 32, dt, g) for c in QUALITY_GN_SHAPES]
+                + [(*c, dt, g_mesh) for c in MESH_GN_SHAPES]
+                + [(*c, 32, torch.float32, g) for c in GN_EXTRA]
+                + [(*c, 32, dt, g_train) for c in (
+                    MESH_TRAIN_FP32_GN_SHAPES if dt == torch.float32
+                    else [])]):
             x = (torch.randn(shape, device=dev, generator=rg) * 2
                  + 0.5).to(dt)
             scale = torch.randn(shape[1], device=dev, generator=rg).to(w_dt)
@@ -1068,12 +1128,19 @@ def phase_kernels(torch):
             err = compare(torch, f"{name} partials", groupnorm_partials(x, 32),
                           groupnorm_partials_reference(x, 32), "float32")
             ms = time_ms(torch, lambda: groupnorm_partials(x, 32))
+            # the device's own time, calls queued behind a device sleep so
+            # that the wrapper's host time does not enter
+            dms = queued_ms(torch, lambda: groupnorm_partials(x, 32),
+                            int(min(100, max(5, 20.0 / ms))))
+            if dt == torch.bfloat16:
+                queued_sum["groupnorm_stats"] += dms
             pms = time_ms(torch, lambda: groupnorm_partials_reference(x, 32))
             xg = x.view(shape[0], 32, -1)
             lms = time_ms(torch, lambda: torch.var_mean(xg, dim=-1))
             n = float(np.prod(shape))
             record("groupnorm_stats", (shape, silu),
-                   f"{name} partials (library: torch.var_mean)", dt, err,
+                   f"{name} partials (library: torch.var_mean; device "
+                   f"(queued) {dms:.4f} ms)", dt, err,
                    ms, pms, lms, bound_ms(5 * n, eb * n + shape[0] * 32 * 12,
                                           PEAK_OPS[4]))
             parts = torch.stack([groupnorm_partials(x, 32),
@@ -1082,9 +1149,14 @@ def phase_kernels(torch):
             err = compare(torch, f"{name} apply", groupnorm_apply(*args),
                           groupnorm_apply_reference(*args), dn)
             ms = time_ms(torch, lambda: groupnorm_apply(*args))
+            dms = queued_ms(torch, lambda: groupnorm_apply(*args),
+                            int(min(100, max(5, 20.0 / ms))))
+            if dt == torch.bfloat16:
+                queued_sum["groupnorm_apply"] += dms
             pms = time_ms(torch, lambda: groupnorm_apply_reference(*args))
             record("groupnorm_apply", (shape, silu),
-                   f"{name} apply, 2 ranks' partials (library: none)", dt,
+                   f"{name} apply, 2 ranks' partials (library: none; device "
+                   f"(queued) {dms:.4f} ms)", dt,
                    err, ms, pms, 0.0, gn_bound(shape, silu, eb))
             del x, x2, xg, parts
         torch.cuda.empty_cache()
@@ -1092,12 +1164,14 @@ def phase_kernels(torch):
         # forward's saved log-sum-exp as a gradient's backward is; the
         # library is autograd through scaled_dot_product_attention, or
         # group_norm+silu
-        for b, sq, sk, h, d in BWD_ATTN_SHAPES + (
-                TRAIN_FP32_ATTN_SHAPES if dt == torch.float32 else []):
+        for (b, sq, sk, h, d), rg in (
+                [(s_, g) for s_ in BWD_ATTN_SHAPES + (
+                    TRAIN_FP32_ATTN_SHAPES if dt == torch.float32 else [])]
+                + [(s_, g_train) for s_ in train_rows]):
             q, k, v = (torch.randn(b, s_, h, d, device=dev,
-                                   generator=g).to(dt)
+                                   generator=rg).to(dt)
                        for s_ in (sq, sk, sk))
-            do = torch.randn(b, sq, h, d, device=dev, generator=g).to(dt)
+            do = torch.randn(b, sq, h, d, device=dev, generator=rg).to(dt)
             o, lse = flash_attention_with_lse(q, k, v)
             name = f"attn bwd {dn} B={b} Sq={sq} Sk={sk} H={h} D={d}"
 
@@ -1165,12 +1239,17 @@ def phase_kernels(torch):
             record("flash_attention_bwd", (b, sq, sk, h, d), name + scaled,
                    dt, err, ms, pms, lms, attn_bwd_bound(b, sq, sk, h, d, eb))
             del q, k, v, do, o, lse, qh, kh, vh, oh, doh
-        for shape, eps, silu in BWD_GN_SHAPES + (
-                TRAIN_FP32_GN_SHAPES if dt == torch.float32 else []):
-            x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).to(dt)
-            dy = torch.randn(shape, device=dev, generator=g).to(dt)
+        for (shape, eps, silu), rg in (
+                [(c, g) for c in BWD_GN_SHAPES + (
+                    TRAIN_FP32_GN_SHAPES if dt == torch.float32 else [])]
+                + [(c, g_train) for c in (MESH_TRAIN_FP32_GN_SHAPES
+                                          if dt == torch.float32 else [])]):
+            x = (torch.randn(shape, device=dev, generator=rg) * 2
+                 + 0.5).to(dt)
+            dy = torch.randn(shape, device=dev, generator=rg).to(dt)
             scale, bias = (torch.randn(shape[1], device=dev,
-                                       generator=g).to(dt) for _ in range(2))
+                                       generator=rg).to(dt)
+                           for _ in range(2))
             name = (f"groupnorm bwd {dn} {shape} eps={eps} silu={silu} "
                     f"weights {dn}")
             args = (x, scale, bias, dy, 32, eps, silu)
@@ -1180,10 +1259,15 @@ def phase_kernels(torch):
             if n_launch != 2:
                 raise AssertionError(f"{name}: {n_launch} kernel launches, "
                                      f"not 2")
+            # fp32 rows against the plain backward in fp64: dγ and dβ sum up
+            # to 65536 terms a channel, which an fp32 plain version rounds
+            # in an order of its own
+            ref_args = args if dt == torch.bfloat16 else (
+                *(t.double() for t in args[:4]), *args[4:])
             err = max(compare(torch, f"{name} {t}", g_, want, dn)
                       for t, g_, want in zip(
                           ("dx", "dscale", "dbias"), got,
-                          groupnorm_backward_reference(*args)))
+                          groupnorm_backward_reference(*ref_args)))
             del got
             ms = time_ms(torch, lambda: groupnorm_silu_backward(*args))
             dms = queued_ms(torch, lambda: groupnorm_silu_backward(*args),
@@ -1208,6 +1292,7 @@ def phase_kernels(torch):
             del x, dy, leaves, y
         torch.cuda.empty_cache()
     for name, total in queued_sum.items():
+        summary[name]["queued_ms"] = total
         print(f"{name}: the bf16 rows' device time (queued) sums to "
               f"{total:.4f} ms, against {summary[name]['ms']:.4f} ms "
               f"back to back")
@@ -1231,22 +1316,68 @@ def synth_value(name: str, shape) -> np.ndarray:
     return 0.1 * v
 
 
-def phase_golden(torch):
+GOLDEN = ROOT / "tests" / "goldens" / "sd1_full_geometry.npz"
+
+
+def golden_weights() -> dict:
+    """The golden's UNet and VAE weights by its rule, drawn on the host:
+    {manifest key: state dict of numpy arrays}."""
+    gold = np.load(GOLDEN, allow_pickle=False)
+    return {key: {k: synth_value(k, tuple(s))
+                  for k, s in json.loads(str(gold[key])).items()}
+            for key in ("unet_shapes", "vae_shapes")}
+
+
+#: processes the phases start to run beside their own work; ``main`` stops
+#: any still running when it ends
+BACKGROUND: list = []
+
+
+def start_background(cmd: list, **kw) -> subprocess.Popen:
+    """``subprocess.Popen(cmd, **kw)``, recorded in ``BACKGROUND``."""
+    proc = subprocess.Popen(cmd, **kw)
+    BACKGROUND.append(proc)
+    return proc
+
+
+def in_background(fn):
+    """Start ``fn()`` on a daemon thread; -> a function that waits for it
+    and returns its result (or raises what it raised)."""
+    import threading
+    box = {}
+
+    def target():
+        try:
+            box["value"] = fn()
+        except Exception as e:  # handed to the caller of wait()
+            box["error"] = e
+    thread = threading.Thread(target=target, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+    return wait
+
+
+def phase_golden(torch, weights: Optional[dict] = None):
+    """``weights``: ``golden_weights()`` when drawn already."""
     from stable_diffusion_videos_tpu_torch.models.unet import (UNet2DCondition,
                                                                UNetConfig)
     from stable_diffusion_videos_tpu_torch.models.vae import (AutoencoderKL,
                                                               VAEConfig)
     from stable_diffusion_videos_tpu_torch.models.weights import \
         load_state_dict
-    gold = np.load(ROOT / "tests" / "goldens" / "sd1_full_geometry.npz",
-                   allow_pickle=False)
+    gold = np.load(GOLDEN, allow_pickle=False)
     dev = torch.device("cuda")
+    weights = weights or golden_weights()
 
     def build(cls, cfg, manifest_key):
-        shapes = json.loads(str(gold[manifest_key]))
         with torch.device("meta"):
             mod = cls(cfg)
-        sd = {k: synth_value(k, tuple(s)) for k, s in shapes.items()}
+        sd = weights.pop(manifest_key)
         return load_state_dict(mod, sd, torch.float32).to(dev).eval()
 
     rng = np.random.default_rng(2024)
@@ -1298,11 +1429,12 @@ def png_size(path: Path) -> tuple[int, int]:
 
 def sd1_bundle(torch):
     """The random bf16 SD 1.x bundle that phases 5-7 drive, with the TAESD
-    decoder at its published geometry, on the card."""
+    decoder at its published geometry, drawn on the card (a seeded
+    generator there, in state-dict order, N(0, 0.02))."""
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     t0 = time.perf_counter()
     models = SDModels.random("sd1", seed=1, dtype=torch.bfloat16,
-                             taesd=True).to(torch.device("cuda"))
+                             taesd=True, device=torch.device("cuda"))
     torch.cuda.synchronize()
     print(f"random SD 1.x bundle built in {time.perf_counter() - t0:.1f} s")
     return models
@@ -1370,8 +1502,10 @@ def checked_keys(torch) -> dict:
     """{kernel wrapper: the launch keys phase 3 checks}, in the wrappers'
     ``by_shape`` form."""
     bf16, fp32 = torch.bfloat16, torch.float32
-    fp32_attn = {(*s, fp32) for s in TRAIN_FP32_ATTN_SHAPES}
-    fp32_gn = {(*c, fp32, fp32, 32) for c in TRAIN_FP32_GN_SHAPES}
+    fp32_attn = {(*s, fp32) for s in TRAIN_FP32_ATTN_SHAPES
+                 + MESH_TRAIN_FP32_ATTN_SHAPES}
+    fp32_gn = {(*c, fp32, fp32, 32) for c in TRAIN_FP32_GN_SHAPES
+               + MESH_TRAIN_FP32_GN_SHAPES}
     both = (bf16, fp32)
     return {
         "flash_attention": {(*s, bf16) for s in ATTN_SHAPES
@@ -1673,12 +1807,12 @@ def phase_distilled(torch, models):
 
 
 def family_bundle(torch, family: str, seed: int):
-    """A random bf16 bundle of ``family`` at its published widths, on the
-    card, with its build time printed."""
+    """A random bf16 bundle of ``family`` at its published widths, drawn on
+    the card, with its build time printed."""
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     t0 = time.perf_counter()
-    models = SDModels.random(family, seed=seed, dtype=torch.bfloat16).to(
-        torch.device("cuda"))
+    models = SDModels.random(family, seed=seed, dtype=torch.bfloat16,
+                             device=torch.device("cuda"))
     torch.cuda.synchronize()
     n = sum(p.numel() for m in (models.unet, models.vae, models.text_encoder,
                                 models.text_encoder_2) if m is not None
@@ -1769,9 +1903,10 @@ def phase_families(torch):
 
 
 def refiner_bundle(torch, xl_parts=None, seed: int = 4):
-    """The random bf16 SDXL-refiner bundle at its published widths on the
-    card: its UNet drawn, with phase 8's SDXL VAE and bigG tower (the same
-    published geometry) when given, else the whole bundle drawn."""
+    """The random bf16 SDXL-refiner bundle at its published widths, drawn
+    on the card: its UNet drawn, with phase 8's SDXL VAE and bigG tower
+    (the same published geometry) when given, else the whole bundle
+    drawn."""
     from stable_diffusion_videos_tpu_torch.models.bundle import SDModels
     from stable_diffusion_videos_tpu_torch.models.tokenizer import \
         HashTokenizer
@@ -1782,12 +1917,14 @@ def refiner_bundle(torch, xl_parts=None, seed: int = 4):
     dev, bf16 = torch.device("cuda"), torch.bfloat16
     t0 = time.perf_counter()
     if xl_parts is None:
-        models = SDModels.random("sdxl_refiner", seed=seed, dtype=bf16)
+        models = SDModels.random("sdxl_refiner", seed=seed, dtype=bf16,
+                                 device=dev)
     else:
         cfg = UNetConfig.sd_xl_refiner()
         with torch.device("meta"):
             unet = UNet2DCondition(cfg)
-        load_state_dict(unet, random_state_dict(unet, seed, 0.02, bf16), bf16)
+        load_state_dict(unet, random_state_dict(unet, seed, 0.02, bf16, dev),
+                        bf16)
         models = SDModels.refiner(SDModels(
             cfg, xl_parts["vae_config"], xl_parts["text_config"],
             unet.eval().requires_grad_(False), xl_parts["vae"],
@@ -2065,11 +2202,11 @@ def phase_addons(torch, models, frames):
         frames = plain.denoise_frames(cond, uncond, noise,
                                       num_inference_steps=20,
                                       output_dtype="uint8")
-    run = dict(num_inference_steps=50, guidance_scale=7.5)
+    run = dict(num_inference_steps=LATER_STEPS, guidance_scale=7.5)
 
     def nets(seed):
         t0 = time.perf_counter()
-        cn = ControlNetBundle.random(seed=seed, dtype=bf16).to(dev)
+        cn = ControlNetBundle.random(seed=seed, dtype=bf16, device=dev)
         torch.cuda.synchronize()
         n = sum(p.numel() for p in cn.module.parameters())
         print(f"addons: random ControlNet ({n / 1e9:.3f}B parameters) built "
@@ -2082,7 +2219,7 @@ def phase_addons(torch, models, frames):
     pipe = StableDiffusionWalkPipeline(models, dev, controlnet=cn)
     out["controlnet_walk"], walk_s = counted_run(
         torch, "addons ControlNet walk", lambda: walk_clip(
-            pipe, "chip_smoke_cn", 50, control_image=edge))
+            pipe, "chip_smoke_cn", LATER_STEPS, control_image=edge))
     check_pngs(WORK / "chip_smoke_cn", 16)
     cond, uncond, noise = dispatch_inputs(torch, pipe)
     timed = in_turns(torch, {
@@ -2090,7 +2227,8 @@ def phase_addons(torch, models, frames):
             cond, uncond, noise, output_dtype="uint8", **run, **kw))
         for label, kw in (("plain", {}), ("ControlNet", dict(control=edge)))})
     print(f"addons: ControlNet walk of 16 frames {walk_s:.3f} s (first "
-          f"dispatch included); warm dispatch of 8 frames, pndm-50 CFG 7.5, "
+          f"dispatch included); warm dispatch of 8 frames, "
+          f"pndm-{LATER_STEPS} CFG 7.5, "
           f"in turns: ControlNet {timed['ControlNet']:.4f} s, "
           f"plain {timed['plain']:.4f} s, ratio "
           f"{timed['ControlNet'] / timed['plain']:.4f}, on {line}")
@@ -2128,8 +2266,8 @@ def phase_addons(torch, models, frames):
     cn.zeroed()
     out["controlnet_zeroed_walk"], _ = counted_run(
         torch, "addons zeroed ControlNet walk", lambda: walk_clip(
-            pipe, "chip_smoke_cn_zero", 50, control_image=edge))
-    walk_clip(pipe, "chip_smoke_cn_plain", 50)
+            pipe, "chip_smoke_cn_zero", LATER_STEPS, control_image=edge))
+    walk_clip(pipe, "chip_smoke_cn_plain", LATER_STEPS)
     zero = read_frames(WORK / "chip_smoke_cn_zero", 16)
     base = read_frames(WORK / "chip_smoke_cn_plain", 16)
     print(f"addons: zeroed ControlNet walk vs plain walk, 16 uint8 frames: "
@@ -2145,7 +2283,8 @@ def phase_addons(torch, models, frames):
     # IP-Adapter SD 1.5 with its ViT-H/14 image tower
     t0 = time.perf_counter()
     ip = IPAdapter.random(models.unet_config, seed=6,
-                          vision=CLIPVisionConfig.vit_h14())
+                          vision=CLIPVisionConfig.vit_h14(), device=dev)
+    torch.cuda.synchronize()
     n = sum(p.numel() for p in ip.image_encoder.parameters())
     print(f"addons: random IP-Adapter (tower {n / 1e9:.3f}B parameters, "
           f"fp32) built in {time.perf_counter() - t0:.1f} s")
@@ -2153,11 +2292,12 @@ def phase_addons(torch, models, frames):
     with torch.no_grad():
         pix = preprocess_clip_image(torch.from_numpy(image[None] / 255.0),
                                     224)
+        emb = ip.image_encoder(pix.float().to(dev)).cpu()
+        tok = ip.image_tokens(image)
+        ip.to(torch.device("cpu"))  # the same weights on the CPU
         emb_cpu = ip.image_encoder(pix.float())
         tok_cpu = ip.image_tokens(image)
         ip.to(dev)
-        emb = ip.image_encoder(pix.float().to(dev)).cpu()
-        tok = ip.image_tokens(image)
     for label, got, want in (("embedding", emb, emb_cpu),
                              ("tokens", tok.cpu(), tok_cpu)):
         torch.testing.assert_close(got, want, **TOWER_TOL,
@@ -2168,7 +2308,7 @@ def phase_addons(torch, models, frames):
     ipipe = StableDiffusionWalkPipeline(models, dev, ip_adapter=ip)
     out["ip_walk"], walk_s = counted_run(
         torch, "addons IP-Adapter walk", lambda: walk_clip(
-            ipipe, "chip_smoke_ip", 50, ip_image=image))
+            ipipe, "chip_smoke_ip", LATER_STEPS, ip_image=image))
     check_pngs(WORK / "chip_smoke_ip", 16)
     timed = in_turns(torch, {
         label: (lambda eng=eng, kw=kw: eng.denoise_frames(
@@ -2201,7 +2341,7 @@ def phase_addons(torch, models, frames):
     wpipe = StableDiffusionWalkPipeline(models, dev, prompt_weighting=True)
     out["weighted_walk"], walk_s = counted_run(
         torch, "addons weighted walk", lambda: walk_clip(
-            wpipe, "chip_smoke_weighted", 50,
+            wpipe, "chip_smoke_weighted", LATER_STEPS,
             prompts=(long_prompt, "a (lighthouse:1.2) at dusk")))
     check_pngs(WORK / "chip_smoke_weighted", 16)
     wcond = wpipe.engine.embed_text_weighted(long_prompt, 2).expand(8, -1, -1)
@@ -2439,14 +2579,14 @@ def phase_post(torch, models, frames):
     # the safety checker at CompVis's geometry: tower and head in fp32
     t0 = time.perf_counter()
     scfg = SafetyConfig.sd_v1()
-    checker = SafetyChecker.random(scfg, seed=7, std=0.02)
-    ssd = {k: v.clone() for k, v in checker.state_dict().items()}
-    n = sum(p.numel() for p in checker.parameters())
+    card = SafetyChecker.random(scfg, seed=7, std=0.02, device=dev)
+    ssd = {k: v.cpu() for k, v in card.state_dict().items()}
+    n = sum(p.numel() for p in card.parameters())
     print(f"post: random safety checker ({n / 1e9:.3f}B parameters) built "
           f"in {time.perf_counter() - t0:.1f} s")
     pix = preprocess_for_safety(torch.from_numpy(synth[:2] / 255.0).float(),
                                 224)
-    card = SafetyChecker.build(scfg, ssd, f32).to(dev)
+    checker = SafetyChecker.build(scfg, ssd, f32)  # the same, on the CPU
     with torch.no_grad():
         want = (checker.embed(pix), checker(pix))
         got = (card.embed(pix.to(dev)).cpu(), card(pix.to(dev)).cpu())
@@ -2555,7 +2695,7 @@ def phase_post(torch, models, frames):
 
     # dispatches of 8: ToMe 0.5 and FreeU in turns with plain; tome=0 and
     # neutral FreeU factors against plain
-    run = dict(num_inference_steps=50, guidance_scale=7.5,
+    run = dict(num_inference_steps=LATER_STEPS, guidance_scale=7.5,
                output_dtype="uint8")
     cond, uncond, noise = dispatch_inputs(torch, StableDiffusionWalkPipeline(
         models, dev, safety=False))
@@ -2572,7 +2712,8 @@ def phase_post(torch, models, frames):
             label: eng.denoise_frames(cond, uncond, noise, **run)}))
         for label, eng in engines.items()})
     for label in ("ToMe 0.5", "FreeU"):
-        print(f"post: warm dispatch of 8 frames, pndm-50 CFG 7.5, in turns: "
+        print(f"post: warm dispatch of 8 frames, pndm-{LATER_STEPS} CFG "
+              f"7.5, in turns: "
               f"{label} {timed[label]:.4f} s, plain "
               f"{timed['plain']:.4f} s, ratio "
               f"{timed[label] / timed['plain']:.4f}, on {line}")
@@ -2604,7 +2745,8 @@ def phase_post(torch, models, frames):
     walk_kw = dict(prompts=["a red fox in the snow", "a lighthouse at dusk"],
                    seeds=[42, 1337], num_interpolation_steps=16,
                    output_dir=str(WORK), name=name, height=512, width=512,
-                   num_inference_steps=50, guidance_scale=7.5, batch_size=8,
+                   num_inference_steps=LATER_STEPS, guidance_scale=7.5,
+                   batch_size=8,
                    upsample=True, upsample_weights=str(pth))
     out["composite_walk"], walk_s = counted_run(
         torch, "post composite walk", lambda: result.update(
@@ -2812,21 +2954,19 @@ class BatchLog:
         return out
 
 
-def phase_serve(torch, models, frames, main_fps):
-    """The serving path on phase 5's bundle: a diffusers directory written
-    and loaded back bit for bit, the HTTP server with dynamic batching over
-    real sockets, a forced out-of-memory split, and the command line's
-    ``serve`` as a process; -> {run: {kernel: launches}}."""
-    import os
+def serve_in_process(torch, models, frames, main_fps, root: Path):
+    """Phase serve's in-process part on the diffusers directory ``root``:
+    loaded back bit for bit, the HTTP server with dynamic batching over real
+    sockets, a forced out-of-memory split; -> ({run: {kernel: launches}},
+    the image of ``SERVE_REQUEST`` served alone)."""
     import threading
 
     from stable_diffusion_videos_tpu_torch.pipeline import \
         StableDiffusionWalkPipeline
     from stable_diffusion_videos_tpu_torch.runtime.server import Server
     dev, line, out = torch.device("cuda"), gpu_line(), {}
-    prompt, seed = "a lighthouse on a cliff at dusk", 11
-    req = {"prompt": prompt, "seed": seed}
-    root = write_checkpoint(models, WORK / "serve_checkpoint")
+    req = dict(SERVE_REQUEST)
+    prompt, seed = req["prompt"], req["seed"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pipe = StableDiffusionWalkPipeline.from_pretrained(
@@ -3104,22 +3244,37 @@ def phase_serve(torch, models, frames, main_fps):
               f"{diff}/255 of the uncapped run; on {line}")
     finally:
         server.shutdown()
+    return out, alone
 
-    # the command line's serve, as a user starts it
+
+SERVE_REQUEST = {"prompt": "a lighthouse on a cliff at dusk", "seed": 11}
+
+
+def phase_serve(torch, models, frames, main_fps):
+    """The serving path on phase 5's bundle: a diffusers directory written,
+    then the command line's ``serve`` on it as a process, started first so
+    that it loads while ``serve_in_process`` runs, its image equal to the
+    in-process server's; -> {run: {kernel: launches}}."""
+    import os
+    root = write_checkpoint(models, WORK / "serve_checkpoint")
     port2 = free_port()
     proc_log = WORK / "serve_process.log"
+    proc_root = WORK / "serve_process_root"
+    shutil.rmtree(proc_root, ignore_errors=True)
+    t0 = time.perf_counter()
     with open(proc_log, "w") as f:
-        proc = subprocess.Popen(
+        proc = start_background(
             [sys.executable, "-m", "stable_diffusion_videos_tpu_torch",
              "serve", "--checkpoint", str(root), "--port", str(port2),
-             "--output-root", str(server_root)], cwd=ROOT, stdout=f,
+             "--output-root", str(proc_root)], cwd=ROOT, stdout=f,
             stderr=subprocess.STDOUT, env=dict(os.environ))
-    try:
-        t0 = time.perf_counter()
+    def answered():
+        """/health polled every 0.5 s from the process's start: -> its
+        status, body and the seconds to its first answer."""
         while True:
             try:
-                status, h = http(port2, "GET", "/health", timeout=5)
-                break
+                return (*http(port2, "GET", "/health", timeout=5),
+                        time.perf_counter() - t0)
             except OSError:
                 if proc.poll() is not None:
                     raise AssertionError(f"serve process exited "
@@ -3128,8 +3283,11 @@ def phase_serve(torch, models, frames, main_fps):
                 if time.perf_counter() - t0 > 300:
                     raise AssertionError("serve process did not answer")
                 time.sleep(0.5)
-        up_s = time.perf_counter() - t0
-        image = served(port2, "/generate", req)[0]
+    health = in_background(answered)
+    try:
+        out, alone = serve_in_process(torch, models, frames, main_fps, root)
+        status, h, up_s = health()
+        image = served(port2, "/generate", dict(SERVE_REQUEST))[0]
     finally:
         proc.terminate()
         try:
@@ -3141,10 +3299,12 @@ def phase_serve(torch, models, frames, main_fps):
         raise AssertionError(f"serve process: /health {status} {h}; its "
                              "image differs from the in-process server's")
     print(f"serve: `python3 -m stable_diffusion_videos_tpu_torch serve "
-          f"--checkpoint DIR` answered /health after {up_s:.2f} s and "
-          f"served the in-process server's image; stopped (rc "
+          f"--checkpoint DIR`, started with the phase, answered /health "
+          f"{up_s:.2f} s after its start (beside the in-process server's "
+          f"work) and served the in-process server's image; stopped (rc "
           f"{proc.returncode})")
     shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(proc_root, ignore_errors=True)
     return out
 
 
@@ -3197,7 +3357,7 @@ def phase_train(torch, models, summary=None):
 
     # 1. the UNet trainer: 3 steps with EMA, seconds and peak memory
     cfg = TrainConfig(learning_rate=1e-4, ema_decay=0.999)
-    trainer = UNetTrainer(models, cfg, device=dev)
+    trainer = UNetTrainer(models, config=cfg, device=dev)
     start = [p.detach().clone() for p in trainer.weights.parameters()[:4]]
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
@@ -3569,28 +3729,14 @@ def phase_quality(torch, models, frames):
     del ref, pipe, loaded
     torch.cuda.empty_cache()
     src = write_checkpoint(models, root / "diffusers")
+    # `convert` as a process (on the host alone), beside part 2
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "stable_diffusion_videos_tpu_torch",
-                    "convert", "--checkpoint", str(src), "--out",
-                    str(root / "converted")], check=True, cwd=ROOT,
-                   timeout=600)
-    convert_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    want = SDModels.from_pretrained(src)
-    pretrained_s = time.perf_counter() - t0
-    assert_same_weights("quality: the converted bundle",
-                        SDModels.load(root / "converted"), want)
-    print(f"quality: SD 1.x bundle (bf16, TAESD) {dir_gb(root / 'bundle'):.3f}"
-          f" GB on disk; save {save_s:.2f} s, load onto the card "
-          f"{load_s:.2f} s, convert (a process) {convert_s:.2f} s, "
-          f"from_pretrained of the directory {pretrained_s:.2f} s "
-          f"({dir_gb(src):.3f} GB), on {line}; every parameter and an "
-          f"8-frame pndm-50 dispatch bit-equal, the converted bundle "
-          f"bit-equal to from_pretrained")
-    del want
-    shutil.rmtree(root / "diffusers")
-    shutil.rmtree(root / "converted")
-    shutil.rmtree(root / "bundle")
+    convert = start_background(
+        [sys.executable, "-m", "stable_diffusion_videos_tpu_torch", "convert",
+         "--checkpoint", str(src), "--out", str(root / "converted")],
+        cwd=ROOT)
+    convert_done = in_background(
+        lambda: (convert.wait(timeout=600), time.perf_counter() - t0))
 
     # 2. the committed trained checkpoints, fp32, the card against the CPU
     trained = {d: SDModels.load(STRUCTURED, device=d) for d in (dev, cpu)}
@@ -3628,6 +3774,27 @@ def phase_quality(torch, models, frames):
             or q["ssim_mean"] < TRAINED_BF16_TOL["ssim_mean"]):
         raise AssertionError(f"quality: bf16 is outside {TRAINED_BF16_TOL}")
     del bf16, student
+
+    # 1, continued: the converted bundle
+    rc, convert_s = convert_done()
+    if rc != 0:
+        raise AssertionError(f"quality: convert exited {rc}")
+    t0 = time.perf_counter()
+    want = SDModels.from_pretrained(src)
+    pretrained_s = time.perf_counter() - t0
+    assert_same_weights("quality: the converted bundle",
+                        SDModels.load(root / "converted"), want)
+    print(f"quality: SD 1.x bundle (bf16, TAESD) {dir_gb(root / 'bundle'):.3f}"
+          f" GB on disk; save {save_s:.2f} s, load onto the card "
+          f"{load_s:.2f} s, convert (a process, beside the trained "
+          f"checkpoints' runs) {convert_s:.2f} s, from_pretrained of the "
+          f"directory {pretrained_s:.2f} s ({dir_gb(src):.3f} GB), on {line}; "
+          f"every parameter and an 8-frame pndm-50 dispatch bit-equal, the "
+          f"converted bundle bit-equal to from_pretrained")
+    del want
+    shutil.rmtree(root / "diffusers")
+    shutil.rmtree(root / "converted")
+    shutil.rmtree(root / "bundle")
 
     # 3. LPIPS at the published widths: 8 pairs at 512², phase 5's frames
     # against the same frames with seeded noise
@@ -3744,6 +3911,184 @@ def transport_ms(torch, mesh, dev) -> dict:
     return out
 
 
+def replicated_state(trainer) -> list:
+    """The fp32 tensors a data-parallel trainer replicates: the optimizer's
+    parameters (masters or LoRA factors) and Adam's moments, the EMA, the
+    LCM target's masters."""
+    opt = trainer.optimizer
+    params = [p for group in opt.param_groups for p in group["params"]]
+    out = [p.detach() for p in params] + [
+        opt.state[p][k] for p in params if p in opt.state
+        for k in ("exp_avg", "exp_avg_sq")]
+    out += getattr(trainer, "ema_params", None) or []
+    if hasattr(trainer, "target"):
+        out += trainer.target.parameters()
+    return out
+
+
+def replicas_equal(torch, mesh, tensors) -> bool:
+    """Whether every data rank holds the same bits in ``tensors`` (one list
+    of shapes on every rank): the ranks' buckets all-gathered and compared
+    (every bucket, so that the ranks run the same collectives)."""
+    from stable_diffusion_videos_tpu_torch.parallel.mesh import flat_buckets
+    same = True
+    for pieces in flat_buckets(tensors):
+        flat = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+        every = mesh.all_gather(flat[None], "data", 0)
+        same = all(torch.equal(every[0], x) for x in every[1:]) and same
+    return same
+
+
+def mesh_training(torch, mesh, models, counted, root: Path) -> dict:
+    """Phase mesh's ``train`` scenario on one rank of a (data 2) mesh: the
+    fp32 check against one rank, then the UNet (with its checkpoint's
+    resume), LoRA, VAE and LCM trainers in bf16, their replicas compared
+    after every step; -> this rank's readings."""
+    import copy
+    import dataclasses
+
+    from stable_diffusion_videos_tpu_torch.training import (
+        LCMDistiller, LoRATrainer, TrainConfig, UNetTrainer, VAETrainer)
+    from stable_diffusion_videos_tpu_torch.training.trainer import \
+        draw_t_and_noise
+    dev, out = mesh.device, {}
+    rng = np.random.default_rng(31)
+    width = models.unet_config.cross_attention_dim
+    reduce_ms = []
+    plain_reduce = mesh.all_reduce_mean_
+
+    def timed_reduce(tensors, axis="data"):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        plain_reduce(tensors, axis)
+        torch.cuda.synchronize(dev)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    mesh.all_reduce_mean_ = timed_reduce
+
+    def data(b, side):
+        return (rng.standard_normal((b, side, side, 4),
+                                    dtype=np.float32) * 0.5,
+                rng.standard_normal((b, 77, width), dtype=np.float32) * 0.3)
+
+    # 1. fp32 (TF32 off): the averaged gradient before the first update and
+    # the masters after 2 steps against one rank's trainer on the same
+    # global batch (rank 0 runs that one too)
+    lat, ctx = data(4, MESH_TRAIN_SIDES["fp32"])
+    m32 = dataclasses.replace(models, unet=copy.deepcopy(models.unet).float())
+    cfg = TrainConfig(learning_rate=1e-4, max_grad_norm=MESH_TRAIN_FP32_CLIP)
+    tr = UNetTrainer(m32, mesh=mesh, config=cfg)
+    batch = (lat, ctx, *draw_t_and_noise(torch.Generator(dev).manual_seed(5),
+                                         torch.as_tensor(lat), 1000))
+    counted("train_fp32_gradient", lambda: tr.compute_gradients(*batch),
+            backward=True)
+    grads = [p.grad for p in tr.weights.parameters()]
+    tr.optimizer.zero_grad(set_to_none=True)
+    ref = None
+    if mesh.rank == 0:
+        ref = UNetTrainer(m32, config=cfg, device=dev)
+        counted("train_fp32_one_rank_gradient",
+                lambda: ref.compute_gradients(*batch), backward=True)
+        want = [p.grad for p in ref.weights.parameters()]
+        ref.optimizer.zero_grad(set_to_none=True)
+        dot = sum(float((a.double() * b.double()).sum())
+                  for a, b in zip(grads, want))
+        norms = [sum(float(g.double().square().sum()) for g in gs) ** 0.5
+                 for gs in (grads, want)]
+        top = max(float(g.abs().max()) for g in want)
+        out["fp32_gradient"] = dict(
+            cosine=dot / (norms[0] * norms[1]), norm=norms[1],
+            max_err=max(float((a - b).abs().max())
+                        for a, b in zip(grads, want)) / top)
+    del grads
+    counted("train_fp32_2_steps", lambda: [tr.step(lat, ctx)
+                                           for _ in range(2)], backward=True)
+    if ref is not None:
+        for _ in range(2):
+            ref.step(lat, ctx)
+        out["fp32_masters_max_diff"] = max(
+            float((a - b).detach().abs().max()) for a, b in zip(
+                tr.weights.parameters(), ref.weights.parameters()))
+    out["fp32_replicas_equal"] = replicas_equal(torch, mesh,
+                                                replicated_state(tr))
+    del tr, ref, m32
+    torch.cuda.empty_cache()
+
+    def run(name, make, step, steps, snapshot_after=None):
+        """``steps`` counted steps of a fresh trainer, its replicas compared
+        after each; -> the trainer and, on rank 0, the host copy of its
+        state after ``snapshot_after`` steps (None elsewhere)."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer, held = make(), {}
+        losses, secs, equal, reduces = [], [], [], []
+
+        def steps_():
+            for i in range(steps):
+                n = len(reduce_ms)
+                t0 = time.perf_counter()
+                losses.append(step(trainer))
+                secs.append(time.perf_counter() - t0)
+                reduces.append(sum(reduce_ms[n:]))
+                equal.append(replicas_equal(torch, mesh,
+                                            replicated_state(trainer)))
+                if i == 0 and snapshot_after is not None:
+                    trainer.save_checkpoint(root / "train_ckpt.pt")
+                if i + 1 == snapshot_after and mesh.rank == 0:
+                    held["state"] = [t.to("cpu", copy=True) for t in
+                                     replicated_state(trainer)]
+        counted(name, steps_, backward=True)
+        out[name] = dict(
+            losses=losses, seconds=secs, replicas_equal=equal,
+            reduce_ms=reduces,
+            peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        return trainer, held.get("state")
+
+    # 2. bf16: the UNet at 64² latents, global batch 4 (2 a rank), EMA on;
+    # a checkpoint written by rank 0 after step 1, restored on both ranks,
+    # whose step 2 must equal the uninterrupted one's: rank 0's state
+    # against its host copy of that step, every rank's against rank 0's
+    # (one host copy of the 13.8 GB state, not one a rank)
+    lat, ctx = data(4, MESH_TRAIN_SIDES["latents"])
+    trainer, after2 = run(
+        "train_unet", lambda: UNetTrainer(models, mesh=mesh, config=TrainConfig(
+            learning_rate=1e-4, ema_decay=0.999)),
+        lambda t: t.step(lat, ctx), 3, snapshot_after=2)
+    t0 = time.perf_counter()
+    trainer.restore_checkpoint(root / "train_ckpt.pt")
+    out["train_unet"]["restored_step"] = trainer.step_count
+    trainer.step(lat, ctx)
+    state = replicated_state(trainer)
+    same = replicas_equal(torch, mesh, state)
+    if after2 is not None:
+        same = all(torch.equal(a.cpu(), b)
+                   for a, b in zip(state, after2)) and same
+    out["train_unet"]["resumed_equal"] = same
+    out["train_unet"]["resume_seconds"] = time.perf_counter() - t0
+    out["train_unet"]["host_available"] = host_available_gib()
+    del trainer, after2, state
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.rank == 0:
+        (root / "train_ckpt.pt").unlink()
+
+    # 3. LoRA rank 8 on the same batch; 4. the VAE at 512², global batch 2
+    # (1 a rank); 5. LCM distillation at global batch 4
+    run("train_lora", lambda: LoRATrainer(models, rank=8, mesh=mesh,
+                                          learning_rate=1e-3),
+        lambda t: t.step(lat, ctx), 3)
+    torch.cuda.empty_cache()
+    side = MESH_TRAIN_SIDES["images"]
+    images = rng.uniform(-1, 1, (2, side, side, 3)).astype(np.float32)
+    run("train_vae", lambda: VAETrainer(models, mesh=mesh),
+        lambda t: t.step(images), 2)
+    torch.cuda.empty_cache()
+    uncond = rng.standard_normal((1, 77, width), dtype=np.float32) * 0.3
+    run("train_lcm", lambda: LCMDistiller(models, mesh=mesh),
+        lambda t: t.step(lat, ctx, uncond), 2)
+    torch.cuda.empty_cache()
+    mesh.all_reduce_mean_ = plain_reduce
+    return out
+
+
 def mesh_child(torch, scenario: str, rank: int, world: int, port: int,
                backend: str, devices: list):
     """One rank of phase 15's process group (see ``phase_mesh``); its
@@ -3759,7 +4104,6 @@ def mesh_child(torch, scenario: str, rank: int, world: int, port: int,
     from stable_diffusion_videos_tpu_torch.pipeline import \
         StableDiffusionWalkPipeline
     from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
-    import torch.distributed as dist
     root = WORK / "mesh"
     mesh = initialize_multihost(f"localhost:{port}", world, rank,
                                 backend=backend, devices=devices,
@@ -3768,144 +4112,165 @@ def mesh_child(torch, scenario: str, rank: int, world: int, port: int,
     inp = dict(np.load(root / "inputs.npz"))
     cond, uncond, noise = (torch.from_numpy(inp[k])
                            for k in ("cond", "uncond", "noise"))
-    run = dict(num_inference_steps=50, guidance_scale=7.5,
+    run = dict(num_inference_steps=LATER_STEPS, guidance_scale=7.5,
                output_dtype="uint8")
     out, arrays, keys = {"rank": rank}, {}, []
     label = f"mesh {scenario} rank {rank}"
 
-    def counted(name, fn, split=False):
+    def counted(name, fn, split=False, backward=False):
         got = []
         launches, seconds = counted_run(
             torch, f"{label}: {name}", lambda: got.append(fn()),
-            split=split, keys=keys)
+            backward=backward, split=split, keys=keys)
         out.setdefault("launches", {})[name] = launches
         out.setdefault("seconds", {})[name] = seconds
         return got[0]
 
-    # bit-equality is held within one process: the smoke's own process,
-    # after the other phases, has rounded apart from a fresh one
-    if scenario == "nccl1":
-        t = torch.full((4,), float(rank + 1), device=dev)
-        dist.all_reduce(t)
-        out["nccl_sum"] = t.tolist()
-        models = SDModels.load(root / "bundle", device=dev)
-        plain = Engine(models, dev).denoise_frames(cond, uncond, noise, **run)
-        pipe = StableDiffusionWalkPipeline(models, dev, mesh=mesh,
-                                           safety=False)
-        arrays["frames"] = counted("dispatch", lambda: pipe.engine
-                                   .denoise_frames(cond, uncond, noise,
-                                                   **run))
-        out["equal"] = bool(np.array_equal(arrays["frames"], plain))
-    else:
-        # data parallel: the walk; its dispatch again on the walk's inputs
-        # (warm), each rank's rows against a one-rank engine's; the flags
-        models = SDModels.load(root / "bundle", device=dev)
-        pipe = StableDiffusionWalkPipeline(models, dev, mesh=mesh,
-                                           safety=False)
-        counted("dp_walk", lambda: pipe.walk(
-            prompts=list(MESH_PROMPTS), seeds=[42, 1337],
-            num_interpolation_steps=16, output_dir=str(root), name="walk",
-            height=512, width=512, num_inference_steps=50,
-            guidance_scale=7.5, batch_size=16, make_video=True))
-        (embeds, walk_noise, _), = pipe.generate_inputs(
-            *MESH_PROMPTS, 42, 1337, pipe._latent_shape(512, 512),
-            np.linspace(0.0, 1.0, 16), 16)
-        walk_uncond = pipe.embed_text("")
-        dp = counted("dp_dispatch", lambda: pipe.engine.denoise_frames(
-            embeds, walk_uncond, walk_noise, **run))
-        mine = slice(8 * rank, 8 * rank + 8)
-        out["dp_rows_equal"] = bool(np.array_equal(
-            dp[mine], Engine(models, dev).denoise_frames(
-                embeds[mine], walk_uncond, walk_noise[mine], **run)))
-        if pipe.writer:
-            out["walk_equal"] = bool(np.array_equal(
-                read_frames(root / "walk", 16), dp))
-            import cv2
-            cap = cv2.VideoCapture(str(sorted(
-                (root / "walk").glob("walk.*"))[0]))
-            out["video_frames"] = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
-            cap.release()
-        checker = SafetyChecker.build(SafetyConfig.tiny(),
-                                      torch.load(root / "safety.pt"))
-        safe = Engine(models.with_safety_checker(checker), dev, mesh=mesh)
-        out["flags"] = safe.check_safety(
-            np.load(root / "frames5.npy")).cpu().tolist()
-        del pipe, safe, models
-        # model 2: tensor parallel, then spatial; fp32 (TF32 off) ddim-2
-        # final latents and frames, bf16 pndm-50 frames
-        model2 = make_mesh(model=2, devices=devices, backend=backend)
-        out["transport_ms"] = transport_ms(torch, model2, dev)
-        for layout in ("tp", "spatial"):
-            for dtype in (torch.float32, torch.bfloat16):
-                dn = str(dtype).split(".")[1]
-                models = SDModels.load(root / "bundle", dtype=dtype)
-                want = sum(param_bytes_per_device(m, 2)["per_device_bytes"]
-                           for m in bundle_modules(models).values())
-                # the last layout's engine, and the exchange buffers the
-                # ranks have released (CUDA IPC), are gone before the
-                # reading
-                gc.collect()
-                torch.cuda.ipc_collect()
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated(dev)
-                eng = Engine(models, dev, mesh=model2, scheduler=(
-                    "ddim" if dtype == torch.float32 else "pndm"),
-                    spatial_shard=layout == "spatial",
-                    debug=dtype == torch.float32)
-                torch.cuda.synchronize()
-                if layout == "tp":
-                    out[f"tp_bytes_{dn}"] = [
-                        torch.cuda.memory_allocated(dev) - base, want,
-                        sum(p.numel() * p.element_size()
-                            for m in bundle_modules(eng.models).values()
-                            for p in m.parameters())]
-                split = layout == "spatial"
-                if dtype == torch.float32:
-                    arrays[f"{layout}_frames32"] = counted(
-                        f"{layout}_{dn}", lambda: eng.denoise_frames(
-                            cond, uncond, noise, num_inference_steps=2,
-                            guidance_scale=7.5), split)
-                    arrays[f"{layout}_latents"] = \
-                        eng.debug_latents[-1].float().cpu().numpy()
-                else:
-                    eng.denoise_frames(cond, uncond, noise,
-                                       num_inference_steps=2)  # warm
-                    arrays[f"{layout}_frames"] = counted(
-                        f"{layout}_{dn}", lambda: eng.denoise_frames(
-                            cond, uncond, noise, **run), split)
-                del eng, models
-                torch.cuda.empty_cache()
+    # data parallel: the walk; its dispatch again on the walk's inputs
+    # (warm), each rank's rows against a one-rank engine's (bit-equality is
+    # held within one process); the flags.  Set up while the parent runs
+    # its one-rank work, the counted runs wait for its go
+    models = SDModels.load(root / "bundle", device=dev)
+    while not (root / "go").exists():
+        time.sleep(0.1)
+    pipe = StableDiffusionWalkPipeline(models, dev, mesh=mesh,
+                                       safety=False)
+    counted("dp_walk", lambda: pipe.walk(
+        prompts=list(MESH_PROMPTS), seeds=[42, 1337],
+        num_interpolation_steps=16, output_dir=str(root), name="walk",
+        height=512, width=512, num_inference_steps=LATER_STEPS,
+        guidance_scale=7.5, batch_size=16, make_video=True))
+    (embeds, walk_noise, _), = pipe.generate_inputs(
+        *MESH_PROMPTS, 42, 1337, pipe._latent_shape(512, 512),
+        np.linspace(0.0, 1.0, 16), 16)
+    walk_uncond = pipe.embed_text("")
+    dp = counted("dp_dispatch", lambda: pipe.engine.denoise_frames(
+        embeds, walk_uncond, walk_noise, **run))
+    mine = slice(8 * rank, 8 * rank + 8)
+    out["dp_rows_equal"] = bool(np.array_equal(
+        dp[mine], Engine(models, dev).denoise_frames(
+            embeds[mine], walk_uncond, walk_noise[mine], **run)))
+    if pipe.writer:
+        out["walk_equal"] = bool(np.array_equal(
+            read_frames(root / "walk", 16), dp))
+        import cv2
+        cap = cv2.VideoCapture(str(sorted(
+            (root / "walk").glob("walk.*"))[0]))
+        out["video_frames"] = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+        cap.release()
+    checker = SafetyChecker.build(SafetyConfig.tiny(),
+                                  torch.load(root / "safety.pt"))
+    safe = Engine(models.with_safety_checker(checker), dev, mesh=mesh)
+    out["flags"] = safe.check_safety(
+        np.load(root / "frames5.npy")).cpu().tolist()
+    del pipe, safe, models
+    # model 2: tensor parallel, then spatial; fp32 (TF32 off) ddim-2
+    # final latents and frames, bf16 frames at LATER_STEPS
+    model2 = make_mesh(model=2, devices=devices, backend=backend)
+    out["transport_ms"] = transport_ms(torch, model2, dev)
+    for layout in ("tp", "spatial"):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            models = SDModels.load(root / "bundle", dtype=dtype)
+            want = sum(param_bytes_per_device(m, 2)["per_device_bytes"]
+                       for m in bundle_modules(models).values())
+            # the last layout's engine, and the exchange buffers the
+            # ranks have released (CUDA IPC), are gone before the
+            # reading
+            gc.collect()
+            torch.cuda.ipc_collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(dev)
+            eng = Engine(models, dev, mesh=model2, scheduler=(
+                "ddim" if dtype == torch.float32 else "pndm"),
+                spatial_shard=layout == "spatial",
+                debug=dtype == torch.float32)
+            torch.cuda.synchronize()
+            if layout == "tp":
+                out[f"tp_bytes_{dn}"] = [
+                    torch.cuda.memory_allocated(dev) - base, want,
+                    sum(p.numel() * p.element_size()
+                        for m in bundle_modules(eng.models).values()
+                        for p in m.parameters())]
+            split = layout == "spatial"
+            if dtype == torch.float32:
+                arrays[f"{layout}_frames32"] = counted(
+                    f"{layout}_{dn}", lambda: eng.denoise_frames(
+                        cond, uncond, noise, num_inference_steps=2,
+                        guidance_scale=7.5), split)
+                arrays[f"{layout}_latents"] = \
+                    eng.debug_latents[-1].float().cpu().numpy()
+            else:
+                eng.denoise_frames(cond, uncond, noise,
+                                   num_inference_steps=2)  # warm
+                arrays[f"{layout}_frames"] = counted(
+                    f"{layout}_{dn}", lambda: eng.denoise_frames(
+                        cond, uncond, noise, **run), split)
+            del eng, models
+            torch.cuda.empty_cache()
+    # the model axis' exchange buffers (grown to the fp32 decoder's
+    # gathers) go first: each rank drops its maps of the other's, then
+    # frees its own
+    del model2
+    gc.collect()
+    mesh.barrier()
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    # then training over data 2 (cuDNN's deterministic algorithms, as
+    # phase train's bit-equality checks use)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out.update(mesh_training(torch, mesh, SDModels.load(
+        root / "bundle", device=dev), counted, root))
     out["keys"] = [(name, repr(k), n) for name, k, n in keys]
     np.savez(root / f"{scenario}.rank{rank}.npz", **arrays)
     (root / f"{scenario}.rank{rank}.json").write_text(json.dumps(out))
     shutdown()
 
 
-def run_mesh_children(scenario: str, world: int, backend: str,
-                      devices: list) -> list:
-    """Start one ``chip_smoke.py --mesh-child`` process a rank, wait for
-    each within ``MESH_CHILD_TIMEOUT`` and fail if any overruns or fails
-    (every child is then stopped); -> each rank's (json, arrays)."""
+def start_mesh_children(scenario: str, world: int, backend: str,
+                        devices: list) -> tuple:
+    """Start one ``chip_smoke.py --mesh-child`` process a rank (each sets up
+    its process group and loads the bundle, then waits for ``WORK/mesh/go``
+    before its counted runs); -> what ``wait_mesh_children`` takes."""
     root = WORK / "mesh"
     port = free_port()
     logs = [root / f"{scenario}.rank{r}.log" for r in range(world)]
     procs = []
     for r in range(world):
         with open(logs[r], "w") as log:
-            procs.append(subprocess.Popen(
+            procs.append(start_background(
                 [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-child",
                  scenario, "--rank", str(r), "--world", str(world),
                  "--port", str(port), "--backend", backend,
                  "--devices", ",".join(devices)],
                 stdout=log, stderr=subprocess.STDOUT, cwd=str(ROOT)))
-    t0 = time.perf_counter()
+    return scenario, procs, logs, time.perf_counter()
+
+
+def wait_mesh_children(started: tuple) -> list:
+    """Wait for the ranks ``start_mesh_children`` started, within
+    ``MESH_CHILD_TIMEOUT`` of their start, and fail if any overruns or
+    fails (every rank is then stopped); -> each rank's (json, arrays)."""
+    scenario, procs, logs, t0 = started
+    root, world = WORK / "mesh", len(procs)
     try:
+        # every rank polled: one that fails stops the others at once (they
+        # would otherwise wait in a collective until its timeout)
+        while any(p.poll() is None for p in procs):
+            for r, p in enumerate(procs):
+                if p.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"mesh {scenario}: rank {r} exited {p.returncode}:\n"
+                        + logs[r].read_text()[-6000:])
+            if time.perf_counter() - t0 > MESH_CHILD_TIMEOUT:
+                raise AssertionError(f"mesh {scenario}: the ranks overran "
+                                     f"{MESH_CHILD_TIMEOUT} s")
+            time.sleep(0.2)
         for r, p in enumerate(procs):
-            left = MESH_CHILD_TIMEOUT - (time.perf_counter() - t0)
-            rc = p.wait(timeout=max(left, 1.0))
-            if rc != 0:
+            if p.returncode != 0:
                 raise AssertionError(
-                    f"mesh {scenario}: rank {r} exited {rc}:\n"
+                    f"mesh {scenario}: rank {r} exited {p.returncode}:\n"
                     + logs[r].read_text()[-6000:])
     finally:
         for p in procs:
@@ -3914,9 +4279,140 @@ def run_mesh_children(scenario: str, world: int, backend: str,
                 p.wait()
     for r in range(world):
         print(logs[r].read_text()[-3000:] if r == 0 else "", end="")
+    print(f"mesh {scenario}: {world} rank(s) ran in "
+          f"{time.perf_counter() - t0:.1f} s from their start")
     return [(json.loads((root / f"{scenario}.rank{r}.json").read_text()),
              dict(np.load(root / f"{scenario}.rank{r}.npz")))
             for r in range(world)]
+
+
+def mesh_nccl1(torch, models, cond, uncond, noise) -> dict:
+    """Phase mesh's one rank over NCCL, in this process: a sum over the
+    group, an 8-frame pndm-25 (``LATER_STEPS``) dispatch of phase 5's
+    bundle on the one-rank mesh against a one-rank engine's, and a bf16
+    UNet training step on it against the trainer without a mesh; -> its
+    readings, frames and launches."""
+    import torch.distributed as dist
+
+    from stable_diffusion_videos_tpu_torch.parallel import \
+        initialize_multihost
+    from stable_diffusion_videos_tpu_torch.parallel.multihost import shutdown
+    from stable_diffusion_videos_tpu_torch.pipeline import \
+        StableDiffusionWalkPipeline
+    from stable_diffusion_videos_tpu_torch.runtime.engine import Engine
+    from stable_diffusion_videos_tpu_torch.training import (TrainConfig,
+                                                            UNetTrainer)
+    mesh = initialize_multihost(f"localhost:{free_port()}", 1, 0,
+                                backend="nccl", devices=["cuda:0"],
+                                timeout_s=MESH_CHILD_TIMEOUT - 60)
+    dev, out, keys = mesh.device, {"launches": {}, "seconds": {}}, []
+    run = dict(num_inference_steps=LATER_STEPS, guidance_scale=7.5,
+               output_dtype="uint8")
+
+    def counted(name, fn, backward=False):
+        got = []
+        out["launches"][name], out["seconds"][name] = counted_run(
+            torch, f"mesh nccl1: {name}", lambda: got.append(fn()),
+            backward=backward, keys=keys)
+        return got[0]
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        t = torch.ones(4, device=dev)
+        dist.all_reduce(t)
+        out["nccl_sum"] = t.tolist()
+        plain = Engine(models, dev).denoise_frames(cond, uncond, noise, **run)
+        pipe = StableDiffusionWalkPipeline(models, dev, mesh=mesh,
+                                           safety=False)
+        out["frames"] = counted("dispatch", lambda: pipe.engine
+                                .denoise_frames(cond, uncond, noise, **run))
+        out["equal"] = bool(np.array_equal(out["frames"], plain))
+        del pipe
+        # a training step on the one-rank mesh against the trainer without
+        # one (cuDNN's deterministic algorithms, as phase train's
+        # bit-equality checks use)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        rng = np.random.default_rng(32)
+        lat = rng.standard_normal((2, 64, 64, 4), dtype=np.float32) * 0.5
+        ctx = rng.standard_normal(
+            (2, 77, models.unet_config.cross_attention_dim),
+            dtype=np.float32) * 0.3
+        cfg = TrainConfig(learning_rate=1e-4, ema_decay=0.999)
+        alone = UNetTrainer(models, config=cfg, device=dev)
+        counted("train_step_no_mesh", lambda: alone.step(lat, ctx),
+                backward=True)
+        want = [t.to("cpu", copy=True)
+                for t in [*alone.weights.parameters(), *alone.ema_params]]
+        del alone
+        torch.cuda.empty_cache()
+        meshed = UNetTrainer(models, mesh=mesh, config=cfg)
+        counted("train_step", lambda: meshed.step(lat, ctx), backward=True)
+        out["train_equal"] = all(torch.equal(a.cpu(), b) for a, b in zip(
+            [*meshed.weights.parameters(), *meshed.ema_params], want))
+        del meshed, want
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = cudnn
+        shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["keys"] = [(name, repr(k), n) for name, k, n in keys]
+    return out
+
+
+def check_mesh_training(name: str, ranks: list, what: str, line: str):
+    """Phase mesh's ``train`` readings of both ranks, printed and held to
+    their bounds (see ``mesh_training``)."""
+    r0, r1 = ranks
+    g, tol = r0["fp32_gradient"], MESH_TRAIN_GRAD_TOL
+    bound = MESH_TRAIN_ADAM_SHARE * 1e-4 * 2
+    print(f"{name}: fp32 UNet (TF32 off) at 32² latents, global batch 4 (2 "
+          f"a rank): the averaged gradient against one rank's on the whole "
+          f"batch, cosine {g['cosine']:.9f}, max error {g['max_err']:.3e} of "
+          f"the largest (bounds {tol}); its norm {g['norm']:.4e}, clipped "
+          f"at {MESH_TRAIN_FP32_CLIP}; the masters after 2 steps "
+          f"{r0['fp32_masters_max_diff']:.3e} from one rank's (bound "
+          f"{bound:.1e}); replicas bit-equal: {r0['fp32_replicas_equal']}, "
+          f"{r1['fp32_replicas_equal']}")
+    if (g["cosine"] < tol["cosine"] or g["max_err"] > tol["max_err"]
+            or g["norm"] <= MESH_TRAIN_FP32_CLIP
+            or r0["fp32_masters_max_diff"] > bound
+            or not (r0["fp32_replicas_equal"] and r1["fp32_replicas_equal"])):
+        raise AssertionError(f"{name}: the fp32 data-parallel trainer is not "
+                             f"one rank's")
+    for run, what_run in (
+            ("train_unet", "UNet, 64² latents, global batch 4, EMA"),
+            ("train_lora", "LoRA rank 8, 64² latents, global batch 4"),
+            ("train_vae", "VAE, 512², global batch 2"),
+            ("train_lcm", "LCM distillation, 64² latents, global batch 4")):
+        a, b = r0[run], r1[run]
+        warm = a["seconds"][1:]
+        print(f"{name}: {run} ({what_run}, bf16): losses "
+              f"{[f'{x:.6f}' for x in a['losses']]}, equal on both ranks: "
+              f"{a['losses'] == b['losses']}; replicas bit-equal after every "
+              f"step: {a['replicas_equal']}, {b['replicas_equal']}; warm "
+              f"step {min(warm):.4f} s (steps "
+              f"{[f'{x:.4f}' for x in a['seconds']]}), all-reduce "
+              f"{np.mean(a['reduce_ms'][1:]):.2f} ms a warm step (rank 0), "
+              f"peak memory {a['peak_gib']:.2f} / {b['peak_gib']:.2f} GiB "
+              f"(rank 0 / 1; {what}, not a scaling figure) on {line}")
+        if not (np.isfinite(a["losses"]).all()
+                and a["losses"] == b["losses"]
+                and all(a["replicas_equal"]) and all(b["replicas_equal"])):
+            raise AssertionError(f"{name}: {run}'s ranks differ or its "
+                                 f"losses are not finite")
+    print(f"{name}: seconds of each counted run (rank 0): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r0["seconds"].items()))
+    u = [r["train_unet"] for r in ranks]
+    print(f"{name}: a checkpoint written by rank 0 after step 1 and restored "
+          f"on both ranks: step {u[0]['restored_step']} restored, the step "
+          f"after it bit-equal to the uninterrupted step 2: "
+          f"{u[0]['resumed_equal']}, {u[1]['resumed_equal']} (restore and "
+          f"step {u[0]['resume_seconds']:.2f} s; host memory available "
+          f"then {u[0]['host_available']})")
+    if not all(x["resumed_equal"] and x["restored_step"] == 1 for x in u):
+        raise AssertionError(f"{name}: the restored run diverged")
 
 
 def phase_mesh(torch, models):
@@ -3941,6 +4437,13 @@ def phase_mesh(torch, models):
     np.savez(root / "inputs.npz", cond=cond.float().cpu().numpy(),
              uncond=uncond.float().cpu().numpy(), noise=noise.numpy())
     del pipe
+    # the layouts' ranks start now: they set up while this process works
+    layouts = [("gloo2", "gloo", ["cuda:0", "cuda:0"],
+                "two ranks sharing one card over gloo, bytes by CUDA IPC")]
+    if torch.cuda.device_count() >= 2:
+        layouts.append(("nccl2", "nccl", ["cuda:0", "cuda:1"],
+                        "two ranks on two cards over NCCL"))
+    first = start_mesh_children(layouts[0][0], 2, *layouts[0][1:3])
     m32 = SDModels.load(root / "bundle", dtype=torch.float32, device=dev)
     e32 = Engine(m32, dev, scheduler="ddim", debug=True)
     frames32 = e32.denoise_frames(cond, uncond, noise, num_inference_steps=2,
@@ -3949,13 +4452,21 @@ def phase_mesh(torch, models):
     del e32, m32
     torch.cuda.empty_cache()
 
-    # one NCCL rank: its dispatch bit-equal to a one-rank engine's in the
-    # same process, and the bf16 frames the sharded layouts are held to
-    (nccl, nccl_arr), = run_mesh_children("nccl1", 1, "nccl", ["cuda:0"])
+    # one NCCL rank in this process: its dispatch bit-equal to a one-rank
+    # engine's, and the bf16 frames the sharded layouts are held to
+    inp = np.load(root / "inputs.npz")
+    nccl = mesh_nccl1(torch, models, *(torch.from_numpy(inp[k]) for k in (
+        "cond", "uncond", "noise")))
     if nccl["nccl_sum"] != [1.0] * 4 or not nccl["equal"]:
         raise AssertionError("mesh: the one-rank NCCL dispatch differs from "
                              "a one-rank engine's")
-    one = nccl_arr["frames"]
+    print(f"mesh nccl1: a bf16 UNet training step (batch 2, 64² latents, "
+          f"EMA) on the one-rank mesh bit-equal to the trainer without a "
+          f"mesh: {nccl['train_equal']}")
+    if not nccl["train_equal"]:
+        raise AssertionError("mesh: the one-rank NCCL training step differs "
+                             "from the trainer's without a mesh")
+    one = nccl["frames"]
     frames5 = one[:5].astype(np.float32) / 255.0
     checker = mesh_safety_checker(torch, frames5)
     with torch.no_grad():
@@ -3964,16 +4475,14 @@ def phase_mesh(torch, models):
     torch.save(checker.state_dict(), root / "safety.pt")
     np.save(root / "frames5.npy", frames5)
     del checker
-    layouts = [("gloo2", "gloo", ["cuda:0", "cuda:0"],
-                "two ranks sharing one card over gloo, bytes by CUDA IPC")]
-    if torch.cuda.device_count() >= 2:
-        layouts.append(("nccl2", "nccl", ["cuda:0", "cuda:1"],
-                        "two ranks on two cards over NCCL"))
-    result = {"nccl1_dispatch": nccl["launches"]["dispatch"]}
+    torch.cuda.empty_cache()
+    (root / "go").touch()
+    result = {f"nccl1_{run}": n for run, n in nccl["launches"].items()}
     keys = list(nccl["keys"])
     for scenario, backend, devices, what in layouts:
-        ranks = run_mesh_children(scenario, 2, backend, devices)
-        (r0, a0), (r1, a1) = ranks
+        started = (first if scenario == layouts[0][0] else
+                   start_mesh_children(scenario, 2, backend, devices))
+        (r0, a0), (r1, a1) = wait_mesh_children(started)
         # data parallel: each rank's rows bit-equal to a one-rank engine's
         # dispatch of them, the walk's PNGs to the dispatch
         if not (r0["dp_rows_equal"] and r1["dp_rows_equal"]
@@ -4012,7 +4521,8 @@ def phase_mesh(torch, models):
                     np.testing.assert_allclose(got, want, **tol)
             q = quality_vs_exact(a0[f"{layout}_frames"] / 255.0, one / 255.0,
                                  lpips_device="cpu")
-            print(f"mesh {scenario}: {layout} bf16 pndm-50 against one rank:"
+            print(f"mesh {scenario}: {layout} bf16 pndm-{LATER_STEPS} "
+                  f"against one rank:"
                   f" PSNR mean {q['psnr_mean']:.2f} dB (min "
                   f"{q['psnr_min']:.2f}), SSIM mean {q['ssim_mean']:.4f}")
             if (q["psnr_mean"] < MESH_BF16_TOL["psnr_mean"]
@@ -4027,13 +4537,16 @@ def phase_mesh(torch, models):
               + f" ({what}) on {line}")
         s = r0["seconds"]
         print(f"mesh {scenario} ({what}; not a scaling figure): dispatch "
-              f"seconds, pndm-50, 512²: one rank 8 frames "
+              f"seconds, pndm-{LATER_STEPS}, 512²: one rank 8 frames "
               f"{nccl['seconds']['dispatch']:.3f}; "
               f"data parallel 16 frames {s['dp_dispatch']:.3f} (walk of 16 "
               f"with its first call {s['dp_walk']:.3f}); tensor parallel 8 "
               f"frames {s['tp_bfloat16']:.3f}; spatial 8 frames "
               f"{s['spatial_bfloat16']:.3f}; on {line}")
-        result.update({f"{scenario}_{run}": n
+        # then training over data 2: the four trainers' replicas
+        check_mesh_training(f"mesh train_{scenario}", [r0, r1], what, line)
+        result.update({(f"train_{scenario}_{run}" if run.startswith("train")
+                        else f"{scenario}_{run}"): n
                        for run, n in r0["launches"].items()})
     checked = {name: {repr(k) for k in ks}
                for name, ks in checked_keys(torch).items()}
@@ -4045,6 +4558,17 @@ def phase_mesh(torch, models):
           f"one phase 3 checks")
     shutil.rmtree(root / "bundle")
     return result
+
+
+def host_available_gib() -> str:
+    """The host's MemAvailable (``/proc/meminfo``), as "N.N GiB"."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return f"{int(line.split()[1]) / 2 ** 20:.1f} GiB"
+    except OSError:
+        pass
+    return "unknown"
 
 
 def free_port() -> int:
@@ -4083,20 +4607,32 @@ def main():
     summary, launches, fewstep, distilled, families, edit, addons, post, \
         serve, train, quality, mesh = (None,) * 12
     frames, xl_parts, main_fps = None, None, None
-    models = (sd1_bundle(torch)
-              if {"main", "fewstep", "distilled", "edit", "addons", "post",
-                  "serve", "train", "quality", "mesh"} & set(phases)
-              else None)
+    # the golden's weights and phase 5's bundle are drawn while nvcc builds
+    # (on the host, and on the card, which nothing else uses then); both
+    # are waited for before phase 3 times anything
+    golden_drawn = (in_background(golden_weights)
+                    if {"build", "golden"} <= set(phases) else None)
+    golden_w, models = None, None
+    models_drawn = (in_background(lambda: sd1_bundle(torch))
+                    if {"main", "fewstep", "distilled", "edit", "addons",
+                        "post", "serve", "train", "quality", "mesh"}
+                    & set(phases) else None)
+    t_all = time.perf_counter()
     for name in PHASES[1:]:
         if name not in phases:
             continue
+        if name != "build" and models_drawn is not None:
+            models, models_drawn = models_drawn(), None
         t0 = time.perf_counter()
         if name == "build":
             phase_build()
+            if golden_drawn is not None:
+                golden_w = golden_drawn()
         elif name == "kernels":
             summary = phase_kernels(torch)
         elif name == "golden":
-            phase_golden(torch)
+            phase_golden(torch, golden_w)
+            golden_w = None
         elif name == "main":
             launches, frames, main_fps = phase_main(torch, models)
         elif name == "fewstep":
@@ -4120,8 +4656,14 @@ def main():
             quality = phase_quality(torch, models, frames)
         else:
             mesh = phase_mesh(torch, models)
-        print(f"phase {name}: ok in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        # on stderr too: a run stopped at a time limit shows how far it got
+        done = (f"phase {name}: ok in {time.perf_counter() - t0:.1f} s "
+                f"({time.perf_counter() - t_all:.1f} s in all; host memory "
+                f"available {host_available_gib()})")
+        print(done, flush=True)
+        print(done, file=sys.stderr, flush=True)
+    print(f"phases {','.join(p for p in PHASES[1:] if p in phases)}: ok in "
+          f"{time.perf_counter() - t_all:.1f} s")
     if set(phases) != set(PHASES):
         print(f"partial run of {phases}: no result line")
         return
@@ -4178,7 +4720,10 @@ def main():
                                   + source,
                         "replaces": replaces,
                         "launches": sum(runs.values()),
-                        "launches_train": runs})
+                        "launches_train": runs,
+                        "launches_mesh": {
+                            run: counts[wrapper[name]]
+                            for run, counts in mesh.items() if "train" in run}})
     # the split-statistics GroupNorm: its main path is the spatially sharded
     # UNet, whose launches come from phase mesh's bf16 run (rank 0)
     for name, wrap, library in (
@@ -4209,4 +4754,10 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        for proc in BACKGROUND:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()

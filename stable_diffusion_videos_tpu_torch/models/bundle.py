@@ -220,13 +220,15 @@ class SDModels:
               std: float, dtype: torch.dtype,
               taesd_config: Optional[TAESDConfig] = None,
               text_config_2: Optional[CLIPTextConfig] = None,
-              scheduler_config: Optional[SchedulerConfig] = None
-              ) -> "SDModels":
+              scheduler_config: Optional[SchedulerConfig] = None,
+              device: Optional[torch.device] = None) -> "SDModels":
         """Modules of the given geometry with every weight drawn N(0, std)
         from numpy seeds ``seed``, ``seed + 1``, ``seed + 2`` (and the
         TAESD decoder's and then encoder's, if a config is given, from
         ``seed + 3``; the second text tower's, if one is given, from
-        ``seed + 4``), each cast to ``dtype`` as it is drawn."""
+        ``seed + 4``), each cast to ``dtype`` as it is drawn; with
+        ``device``, from generators on that device with those seeds, the
+        modules built there (``random_state_dict``)."""
         configs = [unet_config, vae_config, text_config]
         builders = [UNet2DCondition, AutoencoderKL, CLIPTextEncoder]
         seeds = [seed, seed + 1, seed + 2]
@@ -238,7 +240,8 @@ class SDModels:
         for build, cfg, s in zip(builders, configs, seeds):
             with torch.device("meta"):
                 m = build(cfg)
-            load_state_dict(m, random_state_dict(m, s, std, dtype), dtype)
+            load_state_dict(m, random_state_dict(m, s, std, dtype, device),
+                            dtype)
             mods.append(m.eval().requires_grad_(False))
         vocab = text_config.vocab_size
         models = cls(unet_config, vae_config, text_config, *mods[:3],
@@ -254,7 +257,8 @@ class SDModels:
         with torch.device("meta"):
             shapes = AutoencoderTiny(taesd_config, encoder=True)
         return models.with_taesd(
-            taesd_config, random_state_dict(shapes, seed + 3, std, dtype))
+            taesd_config, random_state_dict(shapes, seed + 3, std, dtype,
+                                            device))
 
     @classmethod
     def tiny(cls, seed: int = 0, taesd: bool = False,
@@ -294,7 +298,8 @@ class SDModels:
     @classmethod
     def random(cls, family: str = "sd1", seed: int = 1,
                dtype: torch.dtype = torch.bfloat16, taesd: bool = False,
-               with_safety: bool = False) -> "SDModels":
+               with_safety: bool = False,
+               device: Optional[torch.device] = None) -> "SDModels":
         """A family's published geometry with weights drawn N(0, 0.02):
         "sd1" (CLIP-L, the 860M UNet, the KL autoencoder), "sd2" (SD 2.1
         768-v: OpenCLIP-H, the UNet at 96² latents, SD 1.x's VAE, a
@@ -305,8 +310,11 @@ class SDModels:
         encoder at their published geometry too, with ``with_safety`` the
         safety checker at CompVis's geometry (``SafetyChecker.random``,
         seed ``seed + 5``).  The 0.02 is load-bearing in bf16: unit-scale
-        weights overflow the UNet's residual sums within a few blocks."""
-        models = cls._random(family, seed, dtype, taesd)
+        weights overflow the UNet's residual sums within a few blocks.
+        With ``device`` the networks are drawn on that device
+        (``random_state_dict``); the safety checker is drawn by numpy and
+        moved there."""
+        models = cls._random(family, seed, dtype, taesd, device)
         if not with_safety:
             return models
         return models.with_safety_checker(SafetyChecker.random(
@@ -314,26 +322,29 @@ class SDModels:
 
     @classmethod
     def _random(cls, family: str, seed: int, dtype: torch.dtype,
-                taesd: bool) -> "SDModels":
+                taesd: bool, device) -> "SDModels":
         taesd_config = TAESDConfig.sd() if taesd else None
         if family == "sd1":
             return cls.build(UNetConfig.sd_v1(), VAEConfig.sd_v1(),
                              CLIPTextConfig.sd_v1(), seed, 0.02, dtype,
-                             taesd_config)
+                             taesd_config, device=device)
         if family == "sd2":
             return cls.build(UNetConfig.sd_v2(96), VAEConfig.sd_v1(),
                              CLIPTextConfig.sd_v2(), seed, 0.02, dtype,
                              taesd_config, scheduler_config=SchedulerConfig(
-                                 prediction_type="v_prediction"))
+                                 prediction_type="v_prediction"),
+                             device=device)
         if family == "sdxl":
             return cls.build(UNetConfig.sd_xl(), VAEConfig.sd_xl(),
                              CLIPTextConfig.sd_xl_l(), seed, 0.02, dtype,
                              taesd_config,
-                             text_config_2=CLIPTextConfig.sd_xl_g())
+                             text_config_2=CLIPTextConfig.sd_xl_g(),
+                             device=device)
         if family == "sdxl_refiner":
             return cls.refiner(cls.build(
                 UNetConfig.sd_xl_refiner(), VAEConfig.sd_xl(),
-                CLIPTextConfig.sd_xl_g(), seed, 0.02, dtype, taesd_config))
+                CLIPTextConfig.sd_xl_g(), seed, 0.02, dtype, taesd_config,
+                device=device))
         raise ValueError(f"unknown model family {family!r}; the port has "
                          "'sd1', 'sd2', 'sdxl' and 'sdxl_refiner'")
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -123,17 +123,19 @@ class ControlNetBundle:
                    tuple(cond_channels))
 
     @classmethod
-    def random(cls, seed: int = 5,
-               dtype: torch.dtype = torch.bfloat16) -> "ControlNetBundle":
+    def random(cls, seed: int = 5, dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> "ControlNetBundle":
         """SD 1.x's published ControlNet geometry (lllyasviel/
         sd-controlnet-canny: the SD 1.x trunk and conditioning channels
         (16, 32, 96, 256)) with every weight, the taps too, drawn N(0,
-        0.02) from a numpy seed (0.02 as ``SDModels.random``)."""
+        0.02) from a numpy seed (0.02 as ``SDModels.random``); with
+        ``device``, drawn there from a seeded ``torch.Generator``
+        (``random_state_dict``'s device route), the module on it."""
         config = UNetConfig.sd_v1()
         with torch.device("meta"):
             shapes = ControlNet(config)
-        return cls.build(config, SD_COND_CHANNELS,
-                         random_state_dict(shapes, seed, 0.02, dtype), dtype)
+        return cls.build(config, SD_COND_CHANNELS, random_state_dict(
+            shapes, seed, 0.02, dtype, device), dtype)
 
     @classmethod
     def tiny(cls, seed: int = 0) -> "ControlNetBundle":

@@ -233,12 +233,16 @@ class IPAdapter:
     @classmethod
     def random(cls, unet_config, seed: int = 6,
                vision: Optional[CLIPVisionConfig] = None,
-               embed_dim: int = 1024) -> "IPAdapter":
+               embed_dim: int = 1024,
+               device: Optional[torch.device] = None) -> "IPAdapter":
         """Random fp32 weights drawn N(0, 0.02) from numpy seeds ``seed``
         (the projection and K/V) and ``seed + 1`` (the tower, when
         ``vision`` is given): with ``UNetConfig.sd_v1()`` and
         ``CLIPVisionConfig.vit_h14()`` the published widths of
-        ip-adapter_sd15 (4 tokens, 1024 -> 4·768) and its image encoder."""
+        ip-adapter_sd15 (4 tokens, 1024 -> 4·768) and its image encoder.
+        With ``device`` the tower is drawn there from a ``torch.Generator``
+        seeded with ``seed + 1`` (``random_state_dict``'s device route) and
+        the adapter is moved onto it."""
         rng, std, num_tokens = np.random.default_rng(seed), 0.02, 4
         state = {
             "image_proj.proj.weight": rng.standard_normal(
@@ -260,8 +264,10 @@ class IPAdapter:
         if vision is not None:
             with torch.device("meta"):
                 shapes = CLIPVisionEncoder(vision)
-            tower = (vision, random_state_dict(shapes, seed + 1, std))
-        return cls.build(unet_config, embed_dim, num_tokens, state, tower)
+            tower = (vision, random_state_dict(shapes, seed + 1, std,
+                                               device=device))
+        adapter = cls.build(unet_config, embed_dim, num_tokens, state, tower)
+        return adapter if device is None else adapter.to(device)
 
     @classmethod
     def from_jax_params(cls, unet_config, ip) -> "IPAdapter":

@@ -33,6 +33,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from pathlib import Path
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -245,17 +246,20 @@ class SafetyChecker(nn.Module):
 
     @classmethod
     def random(cls, config: SafetyConfig, seed: int, std: float,
-               dtype: torch.dtype = torch.float32) -> "SafetyChecker":
+               dtype: torch.dtype = torch.float32,
+               device: Optional[torch.device] = None) -> "SafetyChecker":
         """Every weight drawn N(0, std) from a numpy seed but the
         LayerNorms', which start as an initialiser leaves them (scale 1,
         bias 0), so that the embedding carries the image, and the
         thresholds, 0.5 as the JAX package's initialiser sets them (a
         random embedding's cosine with a random concept is about
-        ±1/sqrt(768), so nothing is flagged)."""
+        ±1/sqrt(768), so nothing is flagged).  With ``device`` the draws
+        come from a ``torch.Generator`` there (``random_state_dict``'s
+        device route) and the checker is built on it."""
         from .weights import random_state_dict
         with torch.device("meta"):
             shapes = cls(config)
-        sd = random_state_dict(shapes, seed, std)
+        sd = random_state_dict(shapes, seed, std, device=device)
         for name, mod in shapes.named_modules():
             if isinstance(mod, nn.LayerNorm):
                 sd[f"{name}.weight"][:] = 1.0

@@ -13,6 +13,12 @@ running the same walk call, and the collectives written out with
 * ``model``: the weights are split Megatron-style (``parallel/tp.py``), or
   with ``spatial_shard`` the latent's width is (``parallel/spatial.py``).
 
+Training (``training/``) splits a step's batch over ``data`` and averages
+the fp32 gradients with ``Mesh.all_reduce_mean_``: the tensors in
+parameter order, flattened into buckets of at most ``BUCKET_BYTES``, each
+bucket summed and divided by the axis size, so every rank ends with the
+same bits (the psum XLA inserts in the JAX trainers).
+
 Global rank r sits at ``(r // model, r % model)``, the JAX package's
 ``reshape(data, model)``.  Without an initialised process group the mesh
 is one rank and no collective runs.
@@ -35,6 +41,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+#: the most bytes one bucket of ``Mesh.all_reduce_mean_`` holds: the peer
+#: buffers' first capacity, so a gradient reduction never grows them (a
+#: 3.44 GB fp32 gradient in one piece would map about four times that a
+#: rank, on a card the ranks share)
+BUCKET_BYTES = 64 << 20
 
 
 class PeerBuffers:
@@ -158,6 +170,30 @@ class Mesh:
         dist.all_reduce(x, group=self.group(axis))
         return x.to(t.device, t.dtype)
 
+    def all_reduce_mean_(self, tensors: Sequence[torch.Tensor],
+                         axis: str = "data") -> None:
+        """Each of ``tensors`` becomes, in place, the mean of the ranks'
+        along ``axis`` (contiguous tensors of one dtype, the same list of
+        shapes on every rank, as a data-parallel step's gradients are).  The
+        tensors go in list order through ``flat_buckets`` of at most
+        ``BUCKET_BYTES``; each bucket is summed by ``all_reduce`` and
+        divided by the axis size, so every rank ends with the same bits.
+        Nothing happens on a one-rank axis."""
+        n = self.shape[axis]
+        if n == 1:
+            return
+        for pieces in flat_buckets(tensors):
+            bucket = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+            total = self.all_reduce(bucket, axis)
+            total.div_(n)
+            torch._foreach_copy_(
+                pieces, list(total.split([p.numel() for p in pieces])))
+
+    def barrier(self) -> None:
+        """Every rank of the mesh meets here (nothing on one rank)."""
+        if self.size > 1:
+            dist.barrier()
+
     def broadcast_object(self, obj):
         """Rank 0's ``obj`` on every rank (itself on a one-rank mesh)."""
         if self.size == 1:
@@ -173,6 +209,29 @@ class Mesh:
             raise ValueError(f"{n} rows do not split over {k} {axis} ranks")
         i = self.index(axis)
         return slice(i * n // k, (i + 1) * n // k)
+
+
+def flat_buckets(tensors: Sequence[torch.Tensor],
+                 bucket_bytes: int = BUCKET_BYTES):
+    """The elements of ``tensors`` (contiguous, one dtype) in list order,
+    as lists of 1-D views holding at most ``bucket_bytes`` each; a tensor
+    larger than a bucket spans several."""
+    flat = [t.view(-1) for t in tensors]
+    if not flat:
+        return
+    cap = max(1, bucket_bytes // flat[0].element_size())
+    pieces, room = [], cap
+    for t in flat:
+        start = 0
+        while start < t.numel():
+            take = min(room, t.numel() - start)
+            pieces.append(t[start:start + take])
+            start, room = start + take, room - take
+            if not room:
+                yield pieces
+                pieces, room = [], cap
+    if pieces:
+        yield pieces
 
 
 def single(device) -> Mesh:
@@ -262,6 +321,21 @@ def pad_along_axis(array, pad_size: int, axis: int = 0):
     widths = [(0, 0)] * array.ndim
     widths[axis] = (0, pad_size)
     return np.pad(array, widths)
+
+
+def wrap_pad(x, multiple: int):
+    """``x`` (a tensor or a numpy array) with its rows repeated from the
+    start until their count is a multiple of ``multiple``: rows
+    ``arange(ceil(b / multiple) · multiple) % b``, as the JAX trainers pad
+    an uneven batch (real samples, so the padded batch's mean stays an
+    unbiased mini-batch estimate).  ``x`` itself when it divides."""
+    b = x.shape[0]
+    if b % multiple == 0:
+        return x
+    idx = np.arange(pad_to_multiple(b, multiple)) % b
+    if torch.is_tensor(x):
+        return x[torch.as_tensor(idx, device=x.device)]
+    return x[idx]
 
 
 def shard_rows(mesh: Mesh, x):

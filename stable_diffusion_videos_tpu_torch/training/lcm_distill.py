@@ -1,7 +1,7 @@
 """Latent Consistency Model distillation (Luo et al. 2023).
 
-Counterpart of ``stable_diffusion_videos_tpu/training/lcm_distill.py``, on
-one device.  Distills a trained epsilon-prediction UNet (the teacher) into
+Counterpart of ``stable_diffusion_videos_tpu/training/lcm_distill.py``.
+Distills a trained epsilon-prediction UNet (the teacher) into
 a consistency model (the student) that samples in 2-8 steps with the
 ``lcm`` sampler, whose conventions it shares (``core/schedulers/lcm.py``):
 the boundary coefficients c_skip/c_out (sigma_data 0.5, timestep_scaling
@@ -24,6 +24,13 @@ student (mu = 0.95), updated after every step, and is what
 ``export_params`` ships by default.  The teacher is the bundle's UNet as it
 is; the student and the target have fp32 masters and working copies in the
 bundle's dtype (``trainer.py``).
+
+On a mesh the teacher, the student and the target are replicated: a single
+uncond row is broadcast to the batch, the three inputs are wrap-padded to a
+multiple of the data size and split over ``data``, the indices and the
+noise drawn for the whole padded batch, and the student's gradients and the
+loss averaged over ``data`` before the clip (``trainer.py``), so the
+target's EMA is the same on every rank.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ import torch
 
 from ..core.schedulers.base import SchedulerConfig, alphas_cumprod_for
 from ..core.schedulers.lcm import LCM, lcm_timesteps
-from .trainer import (CUDA, MasterWeights, clip_by_global_norm_,
-                      ema_update_, nchw)
+from ..parallel.mesh import Mesh, pad_to_multiple
+from .trainer import (MasterWeights, check_rows, clip_by_global_norm_,
+                      ema_update_, mesh_and_device, nchw, padded_rows,
+                      reduce_gradients)
 
 
 def boundary_coefficients(t) -> tuple:
@@ -71,12 +80,13 @@ class LCMDistiller:
     ``models`` supplies the architecture and the teacher's weights, from
     which the student and the target start."""
 
-    def __init__(self, models, config: Optional[LCMDistillConfig] = None,
+    def __init__(self, models, mesh: Optional[Mesh] = None,
+                 config: Optional[LCMDistillConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  device: Optional[torch.device] = None):
         self.models = models
         self.config = cfg = config or LCMDistillConfig()
-        dev = torch.device(device) if device is not None else CUDA
+        self.mesh, dev = mesh_and_device(mesh, device)
         self.device = dev
         scfg = scheduler_config or models.scheduler_config
         # the origin schedule, descending: ts[0] highest ... ts[N-1] lowest
@@ -140,8 +150,9 @@ class LCMDistiller:
 
     def train_step(self, latents, context, uncond_context, idx,
                    noise) -> float:
-        """One distillation step on given indices and noise.  Returns the
-        loss."""
+        """One distillation step on the global batch and given indices and
+        noise for the batch wrap-padded to a multiple of the data size.
+        Returns the loss, the mean over every rank's rows."""
         cfg, dev = self.config, self.device
         latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
         context = torch.as_tensor(context, dtype=torch.float32, device=dev)
@@ -149,13 +160,17 @@ class LCMDistiller:
                                  device=dev)
         if uncond.shape[0] == 1 and latents.shape[0] > 1:
             uncond = uncond.expand(latents.shape[0], -1, -1)
-        loss = self.loss(latents, context, uncond,
-                         torch.as_tensor(idx, device=dev).long(),
-                         torch.as_tensor(noise, dtype=torch.float32,
-                                         device=dev))
+        (latents, context, uncond), rows = padded_rows(
+            self.mesh, latents, context, uncond)
+        idx = torch.as_tensor(idx, device=dev).long()
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        check_rows(latents.shape[0], idx, noise)
+        loss = self.loss(latents[rows], context[rows], uncond[rows],
+                         idx[rows], noise[rows])
         loss.backward()
         self.student.grads_to_master()
         params = self.student.parameters()
+        (value,) = reduce_gradients(self.mesh, params, loss)
         clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -164,22 +179,24 @@ class LCMDistiller:
         self.student.sync()
         self.target.sync()
         self.step_count += 1
-        return float(loss.detach())
+        return value
 
     def step(self, latents, context, uncond_context,
              generator: Optional[torch.Generator] = None) -> float:
-        """One step; the indices and the noise come from ``generator``
-        (default: one on the device seeded with the step count).  The
-        uncond rows feed only the teacher's CFG; one row broadcasts."""
+        """One step; the indices and the noise of the padded batch come
+        from ``generator`` (default: one on the device seeded with the step
+        count, the same on every rank).  The uncond rows feed only the
+        teacher's CFG; one row broadcasts."""
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device)
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
                 self.step_count)
-        idx = torch.randint(0, self._ts.shape[0] - 1, (latents.shape[0],),
+        b = pad_to_multiple(latents.shape[0], self.mesh.shape["data"])
+        idx = torch.randint(0, self._ts.shape[0] - 1, (b,),
                             generator=generator, device=self.device)
-        noise = torch.randn(tuple(latents.shape), generator=generator,
-                            device=self.device)
+        noise = torch.randn((b,) + tuple(latents.shape[1:]),
+                            generator=generator, device=self.device)
         return self.train_step(latents, context, uncond_context, idx, noise)
 
     def export_params(self, ema: bool = True):

@@ -10,6 +10,12 @@ adapters'.  Adapted: the attentions' to_q/to_k/to_v/to_out and the
 transformer feed-forward's two projections.  Rank-r init: A ~ N(0, 1/r), B
 = 0, so step 0 reproduces the base model.
 
+On a mesh the base and the adapters are replicated and the batch is split
+over ``data``; only the adapters' gradients are averaged (``trainer.py``'s
+bucketed all-reduce).  As in the JAX trainer, whose step places the batch
+on the mesh as it is, a batch the data size does not divide raises: there
+is no wrap-pad here.
+
 The ``.npz`` file is the JAX package's format exactly: each adapter under
 its flax parameter path (``params/down_0_attn_0/blocks_0/attn1/to_q/
 kernel``), ``::a`` (in, r) and ``::b`` (r, out) in flax's (in, out)
@@ -34,7 +40,9 @@ from torch import nn
 
 from ..core.schedulers.base import SchedulerConfig, alphas_cumprod_for
 from ..models.weights import from_jax_params, shared_copy
-from .trainer import CUDA, denoising_loss, draw_t_and_noise
+from ..parallel.mesh import Mesh
+from .trainer import (check_rows, denoising_loss, draw_t_and_noise,
+                      mesh_and_device, reduce_gradients)
 
 logger = logging.getLogger("sdv_torch")
 
@@ -135,7 +143,8 @@ class LoRATrainer:
     """Trains rank-r adapters only; the base UNet stays frozen."""
 
     def __init__(self, models, rank: int = 8, alpha: float | None = None,
-                 learning_rate: float = 1e-4, objective: str = "epsilon",
+                 mesh: Optional[Mesh] = None, learning_rate: float = 1e-4,
+                 objective: str = "epsilon",
                  scheduler_config: Optional[SchedulerConfig] = None,
                  seed: int = 0, device: Optional[torch.device] = None):
         self.models = models
@@ -145,7 +154,7 @@ class LoRATrainer:
         if objective not in ("epsilon", "v_prediction"):
             raise ValueError(f"unknown objective {objective!r}")
         self.objective = objective
-        self.device = torch.device(device) if device is not None else CUDA
+        self.mesh, self.device = mesh_and_device(mesh, device)
         scfg = scheduler_config or models.scheduler_config
         self._acp = torch.tensor(alphas_cumprod_for(scfg),
                                  dtype=torch.float32, device=self.device)
@@ -172,27 +181,40 @@ class LoRATrainer:
         return torch.func.functional_call(self.base, weights,
                                           (noisy, t, context))
 
+    def _check_batch(self, b: int) -> None:
+        d = self.mesh.shape["data"]
+        if b % d:
+            raise ValueError(f"a batch of {b} does not split over {d} data "
+                             f"ranks (the LoRA trainer does not pad)")
+
     def train_step(self, latents, context, t, noise) -> float:
         """One step on given timesteps and noise (``UNetTrainer.train_step``'s
-        arguments).  Returns the loss."""
-        dev = self.device
+        arguments, with no padding: the data size must divide the batch).
+        Returns the loss, the mean over every rank's rows."""
+        dev, mesh = self.device, self.mesh
+        latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
+        self._check_batch(latents.shape[0])
+        t = torch.as_tensor(t, device=dev).long()
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        check_rows(latents.shape[0], t, noise)
+        rows = mesh.rows(latents.shape[0])
         loss = denoising_loss(
-            self._apply, self._acp,
-            torch.as_tensor(latents, dtype=torch.float32, device=dev),
-            torch.as_tensor(context, dtype=torch.float32, device=dev),
-            torch.as_tensor(t, device=dev).long(),
-            torch.as_tensor(noise, dtype=torch.float32, device=dev),
-            self.objective)
+            self._apply, self._acp, latents[rows],
+            torch.as_tensor(context, dtype=torch.float32, device=dev)[rows],
+            t[rows], noise[rows], self.objective)
         loss.backward()
+        (value,) = reduce_gradients(mesh, self.optimizer.param_groups[0][
+            "params"], loss)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step_count += 1
-        return float(loss.detach())
+        return value
 
     def step(self, latents, context,
              generator: Optional[torch.Generator] = None) -> float:
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device)
+        self._check_batch(latents.shape[0])
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
                 self.step_count)
@@ -209,14 +231,17 @@ class LoRATrainer:
 
     def save_lora(self, path) -> None:
         """The adapters alone as ``.npz``: ``{path}::a``, ``{path}::b``,
-        ``__rank__`` and ``__alpha__`` (the JAX package's format)."""
-        arrs = {}
-        for name, ab in self.lora.items():
-            arrs[f"{name}::a"] = ab["a"].detach().cpu().numpy()
-            arrs[f"{name}::b"] = ab["b"].detach().cpu().numpy()
-        np.savez_compressed(path, __rank__=self.rank, __alpha__=self.alpha,
-                            **arrs)
-        logger.info("saved %d LoRA adapters -> %s", len(self.lora), path)
+        ``__rank__`` and ``__alpha__`` (the JAX package's format).  On a
+        mesh rank 0 writes and every rank waits for it."""
+        if self.mesh.rank == 0:
+            arrs = {}
+            for name, ab in self.lora.items():
+                arrs[f"{name}::a"] = ab["a"].detach().cpu().numpy()
+                arrs[f"{name}::b"] = ab["b"].detach().cpu().numpy()
+            np.savez_compressed(path, __rank__=self.rank,
+                                __alpha__=self.alpha, **arrs)
+            logger.info("saved %d LoRA adapters -> %s", len(self.lora), path)
+        self.mesh.barrier()
 
     @staticmethod
     def load_lora(path) -> tuple[dict, int, float]:

@@ -1,8 +1,7 @@
-"""UNet fine-tuning: the denoising objective's training step.
+"""UNet fine-tuning: the denoising objective's training step, data-parallel
+over the (data, model) mesh.
 
-Counterpart of ``stable_diffusion_videos_tpu/training/trainer.py``, on one
-device: the mesh (``parallel/``) carries inference only so far, and the
-JAX trainers' batch sharding on it is the next slice.  The
+Counterpart of ``stable_diffusion_videos_tpu/training/trainer.py``.  The
 objective (Ho et al. 2020):
 
     t ~ U[0, T);  x_t = sqrt(a_t) x0 + sqrt(1-a_t) eps;
@@ -29,6 +28,20 @@ The JAX step draws t and the noise from ``jax.random.split(key)``; here
 the step count unless one is given, as JAX's default key is) and calls
 ``train_step(latents, context, t, noise)``, which takes them explicitly.
 
+On a mesh (``parallel.Mesh``, one process a rank) the trainer does what the
+JAX trainer's SPMD program does on its mesh: the weights and the optimizer
+state are replicated, the batch is split over ``data``.  Every rank takes
+the whole global batch, wrap-pads it to a multiple of the data size (rows
+``arange(ceil(b/dp)·dp) % b``, ``parallel.wrap_pad``), draws t and the
+noise for the whole padded batch from one seed, and runs its own rows.  The
+loss is the mean over those rows; its gradient, cast to the fp32 masters, is
+averaged over ``data`` by one bucketed all-reduce (``Mesh.all_reduce_mean_``,
+the psum XLA inserts), with the rank's loss in the same buckets.  Clipping,
+AdamW and the EMA then act on identical gradients, so every rank holds the
+same bits.  Ranks on the ``model`` axis take the same rows: the JAX trainers
+replicate their weights.  Without a mesh the trainer is one rank on
+``device``, and every collective is a no-op.
+
 Checkpoints are the port's own ``torch.save`` of the master weights, the
 optimizer state, the EMA and the step count.  The JAX package's orbax
 checkpoints are not read.
@@ -39,6 +52,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import logging
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -47,6 +61,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..core.schedulers.base import SchedulerConfig, alphas_cumprod_for
+from ..parallel.mesh import Mesh, single, wrap_pad
 
 logger = logging.getLogger("sdv_torch")
 
@@ -205,23 +220,67 @@ def draw_t_and_noise(generator: torch.Generator, latents: torch.Tensor,
     return t, noise
 
 
-#: where the trainers run unless the caller names a device
+#: where the trainers run unless the caller names a device or a mesh
 CUDA = torch.device("cuda")
+
+
+def mesh_and_device(mesh: Optional[Mesh], device) -> tuple:
+    """(mesh, device) of a trainer: the mesh's rank device when a mesh is
+    given (a ``device`` of another type raises), else ``device`` (default
+    the card) on a one-rank mesh."""
+    if mesh is None:
+        dev = torch.device(device) if device is not None else CUDA
+        return single(dev), dev
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and torch.device(device).type != mesh.device.type:
+        raise ValueError(f"the trainer's device {device} is not the mesh "
+                         f"rank's {mesh.device}")
+    return mesh, mesh.device
+
+
+def padded_rows(mesh: Mesh, *arrays) -> tuple:
+    """(each array wrap-padded to a multiple of the data size, this rank's
+    slice of the padded rows)."""
+    padded = tuple(wrap_pad(a, mesh.shape["data"]) for a in arrays)
+    return padded, mesh.rows(padded[0].shape[0])
+
+
+def check_rows(n: int, *draws) -> None:
+    """A step's draws (t, noise, indices) cover the padded batch's ``n``
+    rows."""
+    for d in draws:
+        if d.shape[0] != n:
+            raise ValueError(f"{d.shape[0]} rows of draws for a padded batch "
+                             f"of {n}")
+
+
+def reduce_gradients(mesh: Mesh, params: list, *values) -> list:
+    """The gradients of ``params`` (those that have one) and the 0-d
+    ``values`` (the rank's losses), each averaged in place over ``data`` by
+    one bucketed all-reduce.  -> the values' means, as floats."""
+    vals = [v.detach().float().reshape(1).clone() for v in values]
+    mesh.all_reduce_mean_([p.grad for p in params if p.grad is not None]
+                          + vals, "data")
+    return [float(v) for v in vals]
 
 
 # ---------------------------------------------------------------------------
 
 class UNetTrainer:
-    """Owns the fp32 masters, the optimizer state and the EMA of a UNet."""
+    """Owns the fp32 masters, the optimizer state and the EMA of a UNet;
+    with ``mesh``, this rank's replica of them."""
 
-    def __init__(self, models, config: Optional[TrainConfig] = None,
+    def __init__(self, models, mesh: Optional[Mesh] = None,
+                 config: Optional[TrainConfig] = None,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  device: Optional[torch.device] = None):
         self.models = models
         self.config = cfg = config or TrainConfig()
         if cfg.objective not in ("epsilon", "v_prediction"):
             raise ValueError(f"unknown objective {cfg.objective!r}")
-        self.device = torch.device(device) if device is not None else CUDA
+        self.mesh, self.device = mesh_and_device(mesh, device)
         scfg = scheduler_config or models.scheduler_config
         self._acp = torch.tensor(alphas_cumprod_for(scfg),
                                  dtype=torch.float32, device=self.device)
@@ -250,20 +309,25 @@ class UNetTrainer:
 
     def compute_gradients(self, latents, context, t, noise) -> float:
         """The loss on given timesteps and noise, its gradient left on the
-        fp32 masters' ``.grad`` (no update): latents and noise (B, h, w, 4)
-        float32 (the latents already scaled by the VAE factor), context
-        (B, S, D), t (B,) integers.  Returns the loss."""
-        cfg, dev = self.config, self.device
-        loss = denoising_loss(
-            self._apply, self._acp,
-            torch.as_tensor(latents, dtype=torch.float32, device=dev),
-            torch.as_tensor(context, dtype=torch.float32, device=dev),
-            torch.as_tensor(t, device=dev).long(),
-            torch.as_tensor(noise, dtype=torch.float32, device=dev),
-            cfg.objective, cfg.snr_gamma)
+        fp32 masters' ``.grad`` (no update): latents (B, h, w, 4) float32
+        (already scaled by the VAE factor) and context (B, S, D), the whole
+        global batch; t (B',) integers and noise (B', h, w, 4) for the batch
+        wrap-padded to B' rows, a multiple of the data size (B' = B on one
+        data rank).  On a mesh the gradient and the loss are the means over
+        every rank's rows.  Returns the loss."""
+        cfg, dev, mesh = self.config, self.device, self.mesh
+        (latents, context), rows = padded_rows(
+            mesh, torch.as_tensor(latents, dtype=torch.float32, device=dev),
+            torch.as_tensor(context, dtype=torch.float32, device=dev))
+        t = torch.as_tensor(t, device=dev).long()
+        noise = torch.as_tensor(noise, dtype=torch.float32, device=dev)
+        check_rows(latents.shape[0], t, noise)
+        loss = denoising_loss(self._apply, self._acp, latents[rows],
+                              context[rows], t[rows], noise[rows],
+                              cfg.objective, cfg.snr_gamma)
         loss.backward()
         self.weights.grads_to_master()
-        return float(loss.detach())
+        return reduce_gradients(mesh, self.weights.parameters(), loss)[0]
 
     def train_step(self, latents, context, t, noise) -> float:
         """One optimisation step on given timesteps and noise
@@ -285,22 +349,27 @@ class UNetTrainer:
 
     def step(self, latents, context,
              generator: Optional[torch.Generator] = None) -> float:
-        """One optimisation step; t and the noise come from ``generator``
-        (default: a generator on the device seeded with the step count)."""
+        """One optimisation step on the global batch; t and the noise of
+        the padded batch come from ``generator`` (default: a generator on
+        the device seeded with the step count, the same on every rank)."""
         latents = torch.as_tensor(latents, dtype=torch.float32,
                                   device=self.device)
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(
                 self.step_count)
-        t, noise = draw_t_and_noise(generator, latents,
-                                    self._num_train_timesteps)
+        t, noise = draw_t_and_noise(
+            generator, wrap_pad(latents, self.mesh.shape["data"]),
+            self._num_train_timesteps)
         return self.train_step(latents, context, t, noise)
 
     def finetune(self, images: np.ndarray, prompts, num_steps: int = 100,
                  log_every: int = 10) -> list:
         """VAE-encode images ((N, H, W, 3) in [-1, 1]) and embed the prompts
         with the bundle, then take ``num_steps`` steps on them.  Returns the
-        loss history."""
+        loss history.  On a mesh every rank encodes and embeds everything,
+        as the JAX trainer's replicated calls do, through a one-rank engine
+        (a mesh engine would split the bundle's weights in place on a model
+        axis above 1)."""
         from ..runtime.engine import Engine
         engine = Engine(self.models, self.device)
         with torch.no_grad():
@@ -324,20 +393,29 @@ class UNetTrainer:
     # ------------------------------------------------------------------
     def save_checkpoint(self, path) -> None:
         """Write the masters, the optimizer state, the EMA and the step
-        count to one file (``torch.save``: a path or a file object)."""
-        payload = {"params": self.unet.state_dict(),
-                   "opt_state": self.optimizer.state_dict(),
-                   "step_count": self.step_count}
-        if self.ema_params is not None:
-            payload["ema_params"] = self.ema_params
-        torch.save(payload, path)
-        logger.info("saved training checkpoint @ step %d -> %s",
-                    self.step_count, path)
+        count to one file (``torch.save``: a path or a file object).  On a
+        mesh rank 0 writes (the replicas are equal) and every rank waits
+        for it."""
+        if self.mesh.rank == 0:
+            payload = {"params": self.unet.state_dict(),
+                       "opt_state": self.optimizer.state_dict(),
+                       "step_count": self.step_count}
+            if self.ema_params is not None:
+                payload["ema_params"] = self.ema_params
+            torch.save(payload, path)
+            logger.info("saved training checkpoint @ step %d -> %s",
+                        self.step_count, path)
+        self.mesh.barrier()
 
     def restore_checkpoint(self, path) -> "UNetTrainer":
-        """Restore a ``save_checkpoint`` file into this trainer."""
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        """Restore a ``save_checkpoint`` file into this trainer (on a mesh
+        every rank reads it).  The file is mapped into host memory (read
+        whole from a file object) and copied in, the live moments dropped
+        first, so the card never holds two copies of the state."""
+        ckpt = torch.load(path, map_location="cpu", weights_only=True,
+                          mmap=isinstance(path, (str, os.PathLike)))
         self.unet.load_state_dict(ckpt["params"])
+        self.optimizer.state.clear()
         self.optimizer.load_state_dict(ckpt["opt_state"])
         if self.ema_params is not None:
             with torch.no_grad():

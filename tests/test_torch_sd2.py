@@ -137,6 +137,7 @@ def test_random_builds_each_family(monkeypatch):
                 "sdxl_refiner": (UNetConfig.sd_xl_refiner(),
                                  VAEConfig.sd_xl(), CLIPTextConfig.sd_xl_g(),
                                  {})}
+        assert kw.pop("device") is None  # drawn by numpy on the host
         assert (ucfg, vcfg, tcfg, kw) == want[family]
     with pytest.raises(ValueError,
                        match="'sd1', 'sd2', 'sdxl' and 'sdxl_refiner'"):
@@ -173,3 +174,94 @@ def test_random_draws_keep_their_values():
     for k, v in got.items():
         assert v.dtype == torch.bfloat16
         assert torch.equal(v, torch.from_numpy(want[k]).to(torch.bfloat16)), k
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_random_draws_on_a_device_generator(dtype):
+    """``random_state_dict(..., device=)``: one ``torch.Generator`` on the
+    device seeded with the seed, ``torch.randn`` in float32 tensor by tensor
+    in state-dict order, times std, cast; every shape the module's, the
+    same draws for a seed and others for another seed.  ``SDModels.build``
+    on a device draws each network from its seed that way, onto the
+    device.  (The numpy route stays the default: the test above.)"""
+    with torch.device("meta"):
+        vae = AutoencoderKL(VAEConfig.tiny())
+    got = random_state_dict(vae, 2, 0.02, dtype, CPU)
+    again = random_state_dict(vae, 2, 0.02, dtype, CPU)
+    other = random_state_dict(vae, 3, 0.02, dtype, CPU)
+    gen = torch.Generator(CPU).manual_seed(2)
+    assert list(got) == list(vae.state_dict())
+    for (k, v), ref in zip(got.items(), vae.state_dict().values()):
+        assert v.shape == ref.shape and v.dtype == dtype
+        assert v.device == CPU
+        want = (torch.randn(tuple(ref.shape), generator=gen) * 0.02).to(dtype)
+        assert torch.equal(v, want) and torch.equal(v, again[k]), k
+    assert not any(torch.equal(v, other[k]) for k, v in got.items()
+                   if v.numel() > 1)
+    models = SDModels.build(UNetConfig.tiny(), VAEConfig.tiny(),
+                            CLIPTextConfig.tiny(), 3, 0.1, dtype, device=CPU)
+    for i, module in enumerate((models.unet, models.vae,
+                                models.text_encoder)):
+        want = random_state_dict(module, 3 + i, 0.1, dtype, CPU)
+        for k, v in module.state_dict().items():
+            assert v.dtype == dtype and torch.equal(v, want[k]), k
+
+
+@pytest.mark.parametrize("addon", ["controlnet", "ip_adapter", "safety"])
+def test_addon_random_draws_on_a_device_generator(addon, monkeypatch):
+    """``ControlNetBundle.random``, ``IPAdapter.random`` (its tower) and
+    ``SafetyChecker.random`` with ``device=`` draw through
+    ``random_state_dict``'s device route, onto that device: the same
+    weights for a seed, every shape the numpy route's, and what numpy
+    draws (the IP-Adapter's projection and K/V) or sets (the checker's
+    LayerNorms and thresholds) unchanged.  ControlNet at the tiny UNet's
+    geometry (its ``random`` is SD 1.x's)."""
+    from stable_diffusion_videos_tpu_torch.models.controlnet import (
+        ControlNet, ControlNetBundle)
+    from stable_diffusion_videos_tpu_torch.models.ip_adapter import IPAdapter
+    from stable_diffusion_videos_tpu_torch.models.safety import (
+        CLIPVisionConfig, CLIPVisionEncoder, SafetyChecker, SafetyConfig)
+    if addon == "controlnet":
+        monkeypatch.setattr(UNetConfig, "sd_v1", UNetConfig.tiny)
+        with torch.device("meta"):
+            shapes = ControlNet(UNetConfig.tiny())
+
+        def make(device):
+            return ControlNetBundle.random(
+                seed=5, dtype=torch.float32, device=device).module
+        drawn = random_state_dict(shapes, 5, 0.02, torch.float32, CPU)
+    elif addon == "ip_adapter":
+        vision = CLIPVisionConfig.tiny()
+        with torch.device("meta"):
+            shapes = CLIPVisionEncoder(vision)
+
+        def make(device):
+            ip = IPAdapter.random(UNetConfig.tiny(), seed=6, vision=vision,
+                                  embed_dim=16, device=device)
+            return torch.nn.ModuleDict({"proj": ip.proj,
+                                        "image_encoder": ip.image_encoder})
+        drawn = {f"image_encoder.{k}": v for k, v in random_state_dict(
+            shapes, 7, 0.02, device=CPU).items()}
+    else:
+        with torch.device("meta"):
+            shapes = SafetyChecker(SafetyConfig.tiny())
+
+        def make(device):
+            return SafetyChecker.random(SafetyConfig.tiny(), seed=2, std=0.2,
+                                        device=device)
+        drawn = random_state_dict(shapes, 2, 0.2, device=CPU)
+    got = make(CPU).state_dict()
+    again, numpy_route = make(CPU).state_dict(), make(None).state_dict()
+    assert list(got) == list(numpy_route)
+    for k, v in got.items():
+        assert v.device == CPU and v.shape == numpy_route[k].shape, k
+        assert torch.equal(v, again[k]), k
+        if k not in drawn:  # the IP-Adapter's projection: numpy's draws
+            assert torch.equal(v, numpy_route[k]), k
+        elif addon == "safety" and (k.endswith("_weights") or torch.equal(
+                numpy_route[k], torch.full_like(v, float(v.flatten()[0])))):
+            # set, not drawn: thresholds 0.5, LayerNorm scales 1, biases 0
+            assert torch.equal(v, numpy_route[k]), k
+        else:
+            assert torch.equal(v, drawn[k].to(v.dtype)), k
