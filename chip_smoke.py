@@ -639,6 +639,11 @@ MESH_SPLIT_GN_SHAPES = (
        for c, h, w in VAE_NORM2])
 MESH_SPLIT_HALF_GN = list(dict.fromkeys(
     ((8, c, h, w // MESH_RANKS), silu) for c, h, w, _, silu in UNET_GN))
+# SDXL-base's UNet at 1024² and CFG batch 2, spatially sharded over model 2
+# (bf16): a rank's half of the width of each GroupNorm, N·G = 64 runs of
+# 20-480 KB, fewer runs than the card has SMs
+MESH_SPLIT_XL_GN = list(dict.fromkeys(
+    ((2, c, h, w // MESH_RANKS), silu) for c, h, w, _, silu in XL_UNET_GN))
 # the sampler steps of phases addons, post and serve: pndm-25, half of
 # phase 5's 50 (their checks hold at any depth: bit-equal, in turns,
 # against one rank), so that the smoke stays well inside its time limit;
@@ -821,6 +826,12 @@ def queued_ms(torch, fn, reps: int) -> float:
     """Mean device ms a call over ``reps`` back-to-back calls enqueued
     behind a device sleep that outlasts their enqueueing, so the host's
     launch rate (tens of microseconds a wrapper call) does not enter."""
+    return queued_times(torch, fn, reps)[0]
+
+
+def queued_times(torch, fn, reps: int) -> tuple[float, float]:
+    """``queued_ms``'s device ms a call, and the host µs a call took to
+    enqueue them (the wrapper's own time: the queue never waits)."""
     cycles = 50_000_000
     fn()
     while True:
@@ -836,8 +847,16 @@ def queued_ms(torch, fn, reps: int) -> float:
         e2.record()
         torch.cuda.synchronize()
         if e0.elapsed_time(e1) > host_ms:
-            return e1.elapsed_time(e2) / reps
+            return e1.elapsed_time(e2) / reps, host_ms * 1e3 / reps
         cycles *= 2
+
+
+def add_split(sums: dict, ms, queued, plain, library, bound, host_us):
+    """One split GroupNorm row's readings added to its family's sums."""
+    for key, value in (("ms", ms), ("queued", queued), ("plain", plain),
+                       ("library", library), ("bound", bound),
+                       ("host_us", host_us), ("rows", 1)):
+        sums[key] += value
 
 
 def kernel_breakdown(torch, fn, reps: int = 5) -> str:
@@ -1085,6 +1104,8 @@ def phase_kernels(torch):
     g_train = torch.Generator(device=dev).manual_seed(15)
     # and the model-axis split's rows from theirs
     g_split = torch.Generator(device=dev).manual_seed(17)
+    # and the SDXL half-slab rows of the split GroupNorm from theirs
+    g_xl = torch.Generator(device=dev).manual_seed(18)
     lib = build.library()
     summary = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                           bound_ms=0.0, bound_by={}, rows={})
@@ -1270,11 +1291,22 @@ def phase_kernels(torch):
         # partials pass against its plain version and, as its library
         # yardstick, torch.var_mean over the grouped view; the apply pass
         # (two ranks' partials merged) against its plain version (no one
-        # PyTorch call computes it: library time 0, "none" in the line)
+        # PyTorch call computes it: library time 0, "none" in the line);
+        # each twice, bit-equal.  The SD 1.x rows' and the SDXL rows' bf16
+        # sums each on a line of their own, with the wrappers' host µs a
+        # call (enqueueing behind a device sleep)
+        split_sums = {fam: {k: dict(ms=0.0, queued=0.0, plain=0.0,
+                                    library=0.0, bound=0.0, host_us=0.0,
+                                    rows=0)
+                            for k in ("partials", "apply")}
+                      for fam in ("SD 1.x", "SDXL")}
         for shape, silu, rg in (
                 [(*c, g_mesh) for c in MESH_SPLIT_GN]
                 + [(*c, g_split) for c in (
-                    MESH_SPLIT_HALF_GN if dt == torch.bfloat16 else [])]):
+                    MESH_SPLIT_HALF_GN if dt == torch.bfloat16 else [])]
+                + [(*c, g_xl) for c in (
+                    MESH_SPLIT_XL_GN if dt == torch.bfloat16 else [])]):
+            fam = split_sums["SDXL" if shape[0] == 2 else "SD 1.x"]
             x = (torch.randn(shape, device=dev, generator=rg) * 2
                  + 0.5).to(dt)
             x2 = (torch.randn(shape, device=dev, generator=rg) * 3
@@ -1283,40 +1315,63 @@ def phase_kernels(torch):
                                        generator=rg).to(dt)
                            for _ in range(2))
             name = f"groupnorm split {dn} {shape} silu={silu}"
-            err = compare(torch, f"{name} partials", groupnorm_partials(x, 32),
+            got = groupnorm_partials(x, 32)
+            err = compare(torch, f"{name} partials", got,
                           groupnorm_partials_reference(x, 32), "float32")
+            if not torch.equal(got, groupnorm_partials(x, 32)):
+                raise AssertionError(f"{name}: two partials calls differ")
             ms = time_ms(torch, lambda: groupnorm_partials(x, 32))
             # the device's own time, calls queued behind a device sleep so
             # that the wrapper's host time does not enter
-            dms = queued_ms(torch, lambda: groupnorm_partials(x, 32),
-                            int(min(100, max(5, 20.0 / ms))))
+            dms, host_us = queued_times(
+                torch, lambda: groupnorm_partials(x, 32),
+                int(min(100, max(5, 20.0 / ms))))
             if dt == torch.bfloat16:
                 queued_sum["groupnorm_stats"] += dms
             pms = time_ms(torch, lambda: groupnorm_partials_reference(x, 32))
             xg = x.view(shape[0], 32, -1)
             lms = time_ms(torch, lambda: torch.var_mean(xg, dim=-1))
             n = float(np.prod(shape))
+            bound = bound_ms(5 * n, eb * n + shape[0] * 32 * 12, PEAK_OPS[4])
             record("groupnorm_stats", (shape, silu),
                    f"{name} partials (library: torch.var_mean; device "
-                   f"(queued) {dms:.4f} ms)", dt, err,
-                   ms, pms, lms, bound_ms(5 * n, eb * n + shape[0] * 32 * 12,
-                                          PEAK_OPS[4]))
-            parts = torch.stack([groupnorm_partials(x, 32),
-                                 groupnorm_partials(x2, 32)])
+                   f"(queued) {dms:.4f} ms; host {host_us:.1f} us a call)",
+                   dt, err, ms, pms, lms, bound)
+            if dt == torch.bfloat16:
+                add_split(fam["partials"], ms, dms, pms, lms, bound[0],
+                          host_us)
+            parts = torch.stack([got, groupnorm_partials(x2, 32)])
             args = (x, scale, bias, parts, 32, 1e-5, silu)
-            err = compare(torch, f"{name} apply", groupnorm_apply(*args),
+            got = groupnorm_apply(*args)
+            err = compare(torch, f"{name} apply", got,
                           groupnorm_apply_reference(*args), dn)
+            if not torch.equal(got, groupnorm_apply(*args)):
+                raise AssertionError(f"{name}: two apply calls differ")
             ms = time_ms(torch, lambda: groupnorm_apply(*args))
-            dms = queued_ms(torch, lambda: groupnorm_apply(*args),
-                            int(min(100, max(5, 20.0 / ms))))
+            dms, host_us = queued_times(
+                torch, lambda: groupnorm_apply(*args),
+                int(min(100, max(5, 20.0 / ms))))
             if dt == torch.bfloat16:
                 queued_sum["groupnorm_apply"] += dms
             pms = time_ms(torch, lambda: groupnorm_apply_reference(*args))
+            bound = gn_bound(shape, silu, eb)
             record("groupnorm_apply", (shape, silu),
                    f"{name} apply, 2 ranks' partials (library: none; device "
-                   f"(queued) {dms:.4f} ms)", dt,
-                   err, ms, pms, 0.0, gn_bound(shape, silu, eb))
-            del x, x2, xg, parts
+                   f"(queued) {dms:.4f} ms; host {host_us:.1f} us a call)",
+                   dt, err, ms, pms, 0.0, bound)
+            if dt == torch.bfloat16:
+                add_split(fam["apply"], ms, dms, pms, 0.0, bound[0], host_us)
+            del x, x2, xg, parts, got
+        if dt == torch.bfloat16:
+            for fam, kernels in split_sums.items():
+                for kernel, f in kernels.items():
+                    print(f"groupnorm split {kernel}: the {f['rows']} "
+                          f"{fam} bf16 rows sum to {f['ms']:.4f} ms back to "
+                          f"back, {f['queued']:.4f} ms on the device "
+                          f"(queued), plain {f['plain']:.4f} ms, library "
+                          f"{f['library']:.4f} ms, bound {f['bound']:.4f} "
+                          f"ms; host {f['host_us'] / f['rows']:.2f} us a "
+                          f"call (mean)")
         torch.cuda.empty_cache()
         part_done("split groupnorm")
         # the backward kernels against the plain backwards, given the
@@ -1700,12 +1755,13 @@ def checked_keys(torch) -> dict:
                                     for dt in both} | fp32_gn,
         "groupnorm_partials": {(shape, dt, 32) for shape, _ in MESH_SPLIT_GN
                                for dt in both}
-        | {(shape, bf16, 32) for shape, _ in MESH_SPLIT_HALF_GN},
+        | {(shape, bf16, 32) for shape, _ in MESH_SPLIT_HALF_GN
+           + MESH_SPLIT_XL_GN},
         "groupnorm_apply": {(shape, silu, dt, dt, 32, MESH_RANKS)
                             for shape, silu in MESH_SPLIT_GN
                             for dt in both}
         | {(shape, silu, bf16, bf16, 32, MESH_RANKS)
-           for shape, silu in MESH_SPLIT_HALF_GN}}
+           for shape, silu in MESH_SPLIT_HALF_GN + MESH_SPLIT_XL_GN}}
 
 
 def unchecked_keys(torch, by_shape: dict) -> list:

@@ -423,153 +423,350 @@ extern "C" int sdv_groupnorm_silu(const void* x, const void* scale,
 // points around an all-gather that the caller runs:
 //
 // * sdv_groupnorm_partials: each (item, group) run of the local slab ->
-//   its Welford partial (count, mean, M2) in fp32, one block a run, each
-//   16-byte vector's exact moments merged with Chan's formula (the
-//   helpers of groupnorm_common.cuh, as the whole-tensor kernel);
-// * sdv_groupnorm_apply: given the P ranks' partials (P, N, G, 3), every
-//   block merges its group's P partials in rank order (so every rank, and
-//   every block, gets the same mean and rstd), folds rstd, scale[c] and
-//   bias[c] into one multiply-add a channel and writes the normalised slab
-//   with the optional SiLU.  Blocks own contiguous chunks of a run.
+//   its Welford partial (count, mean, M2) in fp32, (N, G, 3);
+// * sdv_groupnorm_apply: given the P ranks' partials (P, N, G, 3), the
+//   group's statistics merged in rank order, rstd, scale[c] and bias[c]
+//   folded into one multiply-add a channel, the slab normalised, with the
+//   optional SiLU.
 //
 // What bounds both on the card: bytes (the partials pass reads the slab
 // once; the apply pass reads it again and writes it once).  The groups'
 // statistics cannot be finished before every rank's slab is read, which is
-// why the pass is split around the collective rather than fused.
+// why the pass is split around the collective rather than fused.  The
+// slabs are small (0.3-63 MB on SD 1.x's spatial UNet at CFG batch 16, up
+// to 31 MB on SDXL-base's at 1024²), and the slab a pass reads was mostly
+// written just before it, so the passes run from L2 at launch latency or
+// near the L2's rate; what stands in the way is the wrappers' host time
+// (two to three times a small pass's device time), few runs for many SMs,
+// and the apply's per-vector work.  The design:
+//
+// * Launch plans.  Both passes' geometry is computed once a shape by the
+//   wrapper (ops/groupnorm.py, PartialsPlan / ApplyPlan, field for field
+//   the structs below) from the card's SM count, and every call passes the
+//   plan by pointer with the tensors' pointers and the stream: no argument
+//   is converted or re-derived a call.
+// * Partials, by run size.  A run of at most 4 KB goes to one warp, its
+//   lanes' moments merged by shuffles, with no block barrier, and a block
+//   holds as many warps as spread the runs over the card.  A longer run is
+//   split over a cluster of up to 8 blocks when the runs alone would leave
+//   SMs idle (SDXL's N·G = 64 runs of 20-480 KB: clusters of 5 fill 132
+//   SMs), the blocks' partials merging through distributed shared memory
+//   in block order 0, 1, ...; with runs enough, a block a run.  Each thread
+//   keeps 4 (block) or 8 (warp) 16-byte loads in flight and merges each
+//   vector's exact mean and centred sum of squares (groupnorm_common.cuh,
+//   Chan's formula) into its running moments; a warp's lane holds up to 8
+//   vectors of a run, and merges them into 4 chains (vector j to chain
+//   j % 4) that merge in order at the end, so that neighbouring merges
+//   (each a division) do not wait on one another.
+// * Apply, by tiles that own (item, channel range) or (item, channel,
+//   column range): the channel is fixed along a tile's row, so no vector
+//   divides its index to find its channel.  Each channel's thread merges
+//   its group's P partials in rank order and folds a = rstd·scale[c], b =
+//   bias[c] − mean·a into shared memory once a tile, while the tile's first
+//   loads are in flight; the tile is then normalised (+ SiLU) with 4 loads
+//   in flight a thread.  One block a tile: the card's own scheduler keeps
+//   every SM busy.
+//
+// Not used: TMA bulk copies into mbarrier rings, bulk stores, persistent
+// grids sized by occupancy and L2 eviction hints.  That design is kept in
+// tools/split_groupnorm/tma/groupnorm.cu and timed against this one by
+// tools/split_groupnorm/compare.py (H100 SXM; PERF.md): over SD 1.x's 36
+// bf16 split rows its device time is 1.6 times this one's for the
+// partials and 1.5 times for the apply (1.4 and 1.5 over SDXL's rows),
+// and it stays so with a block for every run or tile in place of the
+// persistent grids: the copies and the staging through shared memory
+// cost more than 16-byte vector loads on these L2-resident slabs.
+//
+// No atomics and a fixed merge order everywhere: a run's moments depend on
+// its shape alone, and every block and rank merges the same P partials in
+// the same order, so all get the same mean and rstd bit for bit.  A slab
+// whose rows are not 16-byte aligned (HW not a multiple of 16 bytes, or a
+// pointer off 16 bytes) moves element by element: one block a run, then
+// blocks of contiguous chunks.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int SPLIT_NT = 256;       // threads a block, both passes
-constexpr int SPLIT_UNROLL = 4;     // vectors in flight a thread
+constexpr int SPLIT_ELEMENT = 0;   // routes: element by element
+constexpr int SPLIT_WARP = 1;      // partials: a warp a run
+constexpr int SPLIT_BLOCK = 2;     // partials: a cluster of blocks a run
+constexpr int SPLIT_TILE = 3;      // apply: tiles of channel rows
+constexpr int SPLIT_NT = 256;      // threads a block (warp route: at most)
+constexpr int SPLIT_UNROLL = 4;    // element route: elements in flight
+constexpr int SPLIT_MAX_CLUSTER = 8;
 
+// the launch plans (ops/groupnorm.py builds them; same fields, same order)
+struct PartialsPlan {
+  long long hw;     // elements a channel of the slab
+  long long slice;  // block route: elements of a run each cluster block owns
+  int n, c, g, dtype;
+  int route;        // SPLIT_ELEMENT, SPLIT_WARP or SPLIT_BLOCK
+  int grid, threads, cluster;
+};
+
+struct ApplyPlan {
+  long long hw;
+  long long tiles;  // tiles of the slab: the grid
+  int n, c, g, dtype, w_dtype, parts, silu;
+  float eps;
+  int route;        // SPLIT_ELEMENT or SPLIT_TILE
+  int rows;         // channels a tile (at most SPLIT_NT); cols == hw if > 1
+  int cols;         // elements of a channel a tile
+  int col_tiles;    // tiles along a channel, ceil(hw / cols)
+  int chan_tiles;   // channel blocks an item, ceil(c / rows)
+};
+
+__device__ __forceinline__ void store_moments(float* part, long long run,
+                                              Moments m) {
+  float* o = part + 3 * run;
+  o[0] = m.n;
+  o[1] = m.mean;
+  o[2] = m.m2;
+}
+
+// The moments of vectors k0, k0 + step, ... below n of v: DEPTH loads in
+// flight, then merged, the thread's vector j into chain j % CHAINS, the
+// chains merged in order.
+template <int DEPTH, int CHAINS, typename T, int VEC>
+__device__ __forceinline__ Moments run_moments(
+    const typename Pack<T, VEC>::Raw* __restrict__ v, unsigned k0,
+    unsigned n, unsigned step) {
+  static_assert(DEPTH % CHAINS == 0, "whole chains");
+  Moments m[CHAINS];
+#pragma unroll
+  for (int u = 0; u < CHAINS; ++u) m[u] = Moments{0.f, 0.f, 0.f};
+  for (unsigned k = k0; k < n; k += DEPTH * step) {
+    typename Pack<T, VEC>::Raw r[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u)
+      if (k + u * step < n) r[u] = v[k + u * step];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      if (k + u * step < n) {
+        float f[VEC];
+        Pack<T, VEC>::unpack(r[u], f);
+        add_vector(m[u % CHAINS], f);
+      }
+    }
+  }
+  Moments t = m[0];
+#pragma unroll
+  for (int u = 1; u < CHAINS; ++u) t = sdv::merge(t, m[u]);
+  return t;
+}
+
+// Partials, runs of at most 4 KB: warp w of block b takes run b·W + w (and
+// + gridDim.x·W, ... were the grid smaller than the runs).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(SPLIT_NT)
-    gn_partials_kernel(const T* __restrict__ x, float* __restrict__ part,
-                       unsigned M) {
-  using P = Pack<T, VEC>;
-  using Raw = typename P::Raw;
+    gn_partials_warp_kernel(const PartialsPlan p, const T* __restrict__ x,
+                            float* __restrict__ part) {
+  using Raw = typename Pack<T, VEC>::Raw;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const long long NG = (long long)p.n * p.g;
+  const long long M = (long long)(p.c / p.g) * p.hw;
+  const unsigned nvec = (unsigned)(M / VEC);
+  for (long long r = (long long)blockIdx.x * nw + (threadIdx.x >> 5); r < NG;
+       r += (long long)gridDim.x * nw) {
+    const Moments m = warp_merge(run_moments<8, 4, T, VEC>(
+        reinterpret_cast<const Raw*>(x + r * M), lane, nvec, 32));
+    if (lane == 0) store_moments(part, r, m);
+  }
+}
+
+// Partials, longer runs: cluster q of the grid takes run q; block `rank` of
+// it owns elements [rank·slice, rank·slice + slice).  With CLUSTER the
+// blocks' partials merge in block order on block 0, through distributed
+// shared memory; without, a block is a run.
+template <typename T, int VEC, bool CLUSTER>
+__global__ void __launch_bounds__(SPLIT_NT, 4)
+    gn_partials_block_kernel(const PartialsPlan p, const T* __restrict__ x,
+                             float* __restrict__ part) {
+  using Raw = typename Pack<T, VEC>::Raw;
+  __shared__ Moments blk;  // this block's partial, read by block 0
+  const unsigned rank = CLUSTER ? cg::this_cluster().block_rank() : 0;
+  const unsigned cs = CLUSTER ? cg::this_cluster().num_blocks() : 1;
+  const long long M = (long long)(p.c / p.g) * p.hw;
+  const long long r = blockIdx.x / cs;
+  const long long start = min((long long)rank * p.slice, M);
+  const unsigned nvec = (unsigned)((min(start + p.slice, M) - start) / VEC);
+  const Moments v = block_merge<SPLIT_NT>(run_moments<4, 1, T, VEC>(
+      reinterpret_cast<const Raw*>(x + r * M + start), threadIdx.x, nvec,
+      SPLIT_NT));
+  if (!CLUSTER) {
+    if (threadIdx.x == 0) store_moments(part, r, v);
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) blk = v;
+  cluster.sync();  // every block's partial is in place
+  if (rank == 0 && threadIdx.x == 0) {
+    Moments t = blk;
+    for (unsigned b = 1; b < cs; ++b)
+      t = sdv::merge(t, *cluster.map_shared_rank(&blk, b));
+    store_moments(part, r, t);
+  }
+  cluster.sync();  // `blk` outlives block 0's reads of it
+}
+
+// The group statistics of partials row `ng`: the P ranks' partials merged
+// in rank order, as every block and rank merges them -> (mean, rstd).
+// Four ranks' partials are loaded at once, then merged.
+__device__ __forceinline__ float2 group_stats(const float* __restrict__ part,
+                                              int P, long long NG,
+                                              long long ng, float eps) {
+  const float* q = part + 3 * ng;
+  Moments t{q[0], q[1], q[2]};
+  for (int r0 = 1; r0 < P; r0 += 4) {
+    Moments b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (r0 + u < P) {
+        const float* o = q + 3 * (r0 + u) * NG;
+        b[u] = Moments{o[0], o[1], o[2]};
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (r0 + u < P) t = sdv::merge(t, b[u]);
+  }
+  return make_float2(t.mean, rsqrtf(t.m2 / t.n + eps));
+}
+
+// Apply, a block a tile: tile t is item t / (chan_tiles·col_tiles),
+// channels [c0, c0 + rows), columns [j0, j0 + cols), a contiguous span.
+// Vector i of the tile lies in row i / vpr: followed by increments of the
+// block's stride, so no vector divides.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(SPLIT_NT)
+    gn_apply_tile_kernel(const ApplyPlan p, const T* __restrict__ x,
+                         const void* __restrict__ scale,
+                         const void* __restrict__ bias,
+                         const float* __restrict__ part, T* __restrict__ y) {
+  using Pk = Pack<T, VEC>;
+  using Raw = typename Pk::Raw;
+  constexpr int DEPTH = 4;
+  __shared__ float coef[2 * SPLIT_NT];  // a[rows], then b at SPLIT_NT
+  const long long per_item = (long long)p.chan_tiles * p.col_tiles;
+  const int n = (int)(blockIdx.x / per_item);
+  const long long rem = blockIdx.x - n * per_item;
+  const int c0 = (int)(rem / p.col_tiles) * p.rows;
+  const int rows = min(p.rows, p.c - c0);
+  const long long j0 = rem % p.col_tiles * p.cols;
+  const long long cols = min((long long)p.cols, p.hw - j0);
+  const long long start = ((long long)n * p.c + c0) * p.hw + j0;
+  const unsigned nvec = (unsigned)(rows * cols / VEC);
+  const Raw* xv = reinterpret_cast<const Raw*>(x + start);
+  Raw* yv = reinterpret_cast<Raw*>(y + start);
+  // the first loads in flight while the coefficients are folded
+  Raw r[DEPTH];
+  unsigned i0 = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < DEPTH; ++u)
+    if (i0 + u * SPLIT_NT < nvec) r[u] = xv[i0 + u * SPLIT_NT];
+  if (threadIdx.x < rows) {
+    const int c = c0 + threadIdx.x, w_bf16 = p.w_dtype == sdv::kBFloat16;
+    const float2 st =
+        group_stats(part, p.parts, (long long)p.n * p.g,
+                    (long long)n * p.g + c / (p.c / p.g), p.eps);
+    const float a = st.y * load_weight(scale, c, w_bf16);
+    coef[threadIdx.x] = a;
+    coef[SPLIT_NT + threadIdx.x] = load_weight(bias, c, w_bf16) - st.x * a;
+  }
+  __syncthreads();
+  const unsigned vpr = (unsigned)(p.cols / VEC);
+  const unsigned step_rows = SPLIT_NT / vpr, step_cols = SPLIT_NT % vpr;
+  unsigned row = threadIdx.x / vpr, col = threadIdx.x % vpr;
+  while (true) {
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      const unsigned i = i0 + u * SPLIT_NT;
+      if (i < nvec) {
+        const float a = coef[row], b = coef[SPLIT_NT + row];
+        float f[VEC];
+        Pk::unpack(r[u], f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          f[e] = fmaf(f[e], a, b);
+          if (p.silu) f[e] = __fdividef(f[e], 1.f + __expf(-f[e]));
+        }
+        yv[i] = Pk::pack(f);
+      }
+      row += step_rows;
+      col += step_cols;
+      if (col >= vpr) {
+        col -= vpr;
+        ++row;
+      }
+    }
+    i0 += DEPTH * SPLIT_NT;
+    if (i0 >= nvec) break;
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u)
+      if (i0 + u * SPLIT_NT < nvec) r[u] = xv[i0 + u * SPLIT_NT];
+  }
+}
+
+// Element by element (a slab whose rows are not 16-byte aligned): one
+// block a run for the partials; blocks of contiguous chunks for the apply.
+template <typename T>
+__global__ void __launch_bounds__(SPLIT_NT)
+    gn_partials_element_kernel(const T* __restrict__ x,
+                               float* __restrict__ part, unsigned M) {
   const T* xg = x + (long long)blockIdx.x * M;
-  constexpr unsigned STEP = SPLIT_NT * VEC;
   Moments v{0.f, 0.f, 0.f};
-  for (unsigned i0 = threadIdx.x * VEC; i0 < M; i0 += SPLIT_UNROLL * STEP) {
-    Raw r[SPLIT_UNROLL];
+  for (unsigned i0 = threadIdx.x; i0 < M; i0 += SPLIT_UNROLL * SPLIT_NT) {
+    T r[SPLIT_UNROLL];
 #pragma unroll
     for (int u = 0; u < SPLIT_UNROLL; ++u) {
-      const unsigned i = i0 + u * STEP;
-      if (i < M) r[u] = *reinterpret_cast<const Raw*>(xg + i);
+      const unsigned i = i0 + u * SPLIT_NT;
+      if (i < M) r[u] = xg[i];
     }
 #pragma unroll
     for (int u = 0; u < SPLIT_UNROLL; ++u) {
-      if (i0 + u * STEP < M) {
-        float f[VEC];
-        P::unpack(r[u], f);
+      if (i0 + u * SPLIT_NT < M) {
+        const float f[1] = {sdv::to_f32(r[u])};
         add_vector(v, f);
       }
     }
   }
   v = block_merge<SPLIT_NT>(v);
-  if (threadIdx.x == 0) {
-    float* o = part + 3LL * blockIdx.x;
-    o[0] = v.n;
-    o[1] = v.mean;
-    o[2] = v.m2;
-  }
+  if (threadIdx.x == 0) store_moments(part, blockIdx.x, v);
 }
 
-template <typename T, int VEC>
+template <typename T>
 __global__ void __launch_bounds__(SPLIT_NT)
-    gn_apply_kernel(const T* __restrict__ x, const void* __restrict__ scale,
-                    const void* __restrict__ bias, int w_bf16,
-                    const float* __restrict__ part, int P, long long NG,
-                    T* __restrict__ y, unsigned M, unsigned HW, int cpg, int G,
-                    float eps, int silu) {
-  using Pk = Pack<T, VEC>;
-  using Raw = typename Pk::Raw;
+    gn_apply_element_kernel(const T* __restrict__ x,
+                            const void* __restrict__ scale,
+                            const void* __restrict__ bias, int w_bf16,
+                            const float* __restrict__ part, int P,
+                            long long NG, T* __restrict__ y, unsigned M,
+                            unsigned HW, int cpg, int G, float eps,
+                            int silu) {
   const long long ng = blockIdx.y;
-  // the P partials of this group, merged in rank order
-  Moments t{0.f, 0.f, 0.f};
-  for (int p = 0; p < P; ++p) {
-    const float* q = part + 3LL * (p * NG + ng);
-    t = sdv::merge(t, Moments{q[0], q[1], q[2]});
-  }
-  const float mean = t.mean, rstd = rsqrtf(t.m2 / t.n + eps);
+  const float2 st = group_stats(part, P, NG, ng, eps);
   const int c0 = (int)(ng % G) * cpg;
   const T* xg = x + ng * M;
   T* yg = y + ng * M;
-  constexpr unsigned STEP = SPLIT_NT * VEC;
-  constexpr unsigned CHUNK = SPLIT_UNROLL * STEP;
-  const unsigned i0 = blockIdx.x * CHUNK + threadIdx.x * VEC;
-  Raw r[SPLIT_UNROLL];
+  constexpr unsigned CHUNK = SPLIT_UNROLL * SPLIT_NT;
+  const unsigned i0 = blockIdx.x * CHUNK + threadIdx.x;
+  T r[SPLIT_UNROLL];
 #pragma unroll
   for (int u = 0; u < SPLIT_UNROLL; ++u) {
-    const unsigned i = i0 + u * STEP;
-    if (i < M) r[u] = *reinterpret_cast<const Raw*>(xg + i);
+    const unsigned i = i0 + u * SPLIT_NT;
+    if (i < M) r[u] = xg[i];
   }
 #pragma unroll
   for (int u = 0; u < SPLIT_UNROLL; ++u) {
-    const unsigned i = i0 + u * STEP;
+    const unsigned i = i0 + u * SPLIT_NT;
     if (i < M) {
       const int c = c0 + (int)(i / HW);
-      const float a = rstd * load_weight(scale, c, w_bf16);
-      const float b = load_weight(bias, c, w_bf16) - mean * a;
-      float f[VEC];
-      Pk::unpack(r[u], f);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        f[e] = fmaf(f[e], a, b);
-        if (silu) f[e] = __fdividef(f[e], 1.f + __expf(-f[e]));
-      }
-      *reinterpret_cast<Raw*>(yg + i) = Pk::pack(f);
+      const float a = st.y * load_weight(scale, c, w_bf16);
+      float f = fmaf(sdv::to_f32(r[u]), a,
+                     load_weight(bias, c, w_bf16) - st.x * a);
+      if (silu) f = __fdividef(f, 1.f + __expf(-f));
+      yg[i] = sdv::from_f32<T>(f);
     }
   }
-}
-
-template <typename T>
-bool split_vectorised(const void* x, const void* y, long long HW) {
-  constexpr int VEC = 16 / sizeof(T);
-  return HW % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         (y == nullptr || reinterpret_cast<uintptr_t>(y) % 16 == 0);
-}
-
-template <typename T>
-int split_partials(const void* x, float* part, int N, int C, long long HW, int G,
-             cudaStream_t s) {
-  constexpr int VEC = 16 / sizeof(T);
-  const unsigned M = (unsigned)((long long)(C / G) * HW);
-  const dim3 grid((unsigned)((long long)N * G));
-  if (split_vectorised<T>(x, nullptr, HW))
-    gn_partials_kernel<T, VEC><<<grid, SPLIT_NT, 0, s>>>(
-        static_cast<const T*>(x), part, M);
-  else
-    gn_partials_kernel<T, 1><<<grid, SPLIT_NT, 0, s>>>(
-        static_cast<const T*>(x), part, M);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int VEC>
-int apply_launch(const void* x, const void* scale, const void* bias,
-                 int w_bf16, const float* part, int P, void* y, int N, int C,
-                 long long HW, int G, float eps, int silu, cudaStream_t s) {
-  const long long NG = (long long)N * G;
-  const unsigned M = (unsigned)((long long)(C / G) * HW);
-  constexpr unsigned CHUNK = SPLIT_UNROLL * SPLIT_NT * VEC;
-  const dim3 grid((M + CHUNK - 1) / CHUNK, (unsigned)NG);
-  gn_apply_kernel<T, VEC><<<grid, SPLIT_NT, 0, s>>>(
-      static_cast<const T*>(x), scale, bias, w_bf16, part, P, NG,
-      static_cast<T*>(y), M, (unsigned)HW, C / G, G, eps, silu);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int split_apply(const void* x, const void* scale, const void* bias, int w_bf16,
-          const float* part, int P, void* y, int N, int C, long long HW,
-          int G, float eps, int silu, cudaStream_t s) {
-  constexpr int VEC = 16 / sizeof(T);
-  return split_vectorised<T>(x, y, HW)
-             ? apply_launch<T, VEC>(x, scale, bias, w_bf16, part, P, y, N, C,
-                                    HW, G, eps, silu, s)
-             : apply_launch<T, 1>(x, scale, bias, w_bf16, part, P, y, N, C,
-                                  HW, G, eps, silu, s);
 }
 
 bool split_shape_ok(int N, int C, long long HW, int G) {
@@ -578,42 +775,114 @@ bool split_shape_ok(int N, int C, long long HW, int G) {
          (long long)(C / G) * HW <= 0x7fffffffLL;
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int run_partials(const PartialsPlan& p, const void* x, float* part,
+                 cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  const T* xt = static_cast<const T*>(x);
+  const long long NG = (long long)p.n * p.g;
+  if (p.route == SPLIT_ELEMENT || !aligned16(x)) {
+    gn_partials_element_kernel<T><<<(unsigned)NG, SPLIT_NT, 0, s>>>(
+        xt, part, (unsigned)((long long)(p.c / p.g) * p.hw));
+    return (int)cudaGetLastError();
+  }
+  if (p.route == SPLIT_WARP && p.grid >= 1 && p.threads >= 32 &&
+      p.threads <= SPLIT_NT && p.threads % 32 == 0) {
+    gn_partials_warp_kernel<T, VEC><<<p.grid, p.threads, 0, s>>>(p, xt,
+                                                                 part);
+    return (int)cudaGetLastError();
+  }
+  if (p.route != SPLIT_BLOCK || p.threads != SPLIT_NT || p.cluster < 1 ||
+      p.cluster > SPLIT_MAX_CLUSTER || p.grid != NG * p.cluster ||
+      p.slice < VEC || p.slice % VEC != 0)
+    return (int)cudaErrorInvalidValue;
+  if (p.cluster == 1) {
+    gn_partials_block_kernel<T, VEC, false><<<p.grid, SPLIT_NT, 0, s>>>(
+        p, xt, part);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.grid);
+  cfg.blockDim = dim3(SPLIT_NT);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gn_partials_block_kernel<T, VEC, true>, p, xt, part);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <typename T>
+int run_apply(const ApplyPlan& p, const void* x, const void* scale,
+              const void* bias, const float* part, void* y, cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (p.route == SPLIT_ELEMENT || !aligned16(x) || !aligned16(y)) {
+    const long long NG = (long long)p.n * p.g;
+    const unsigned M = (unsigned)((long long)(p.c / p.g) * p.hw);
+    constexpr unsigned CHUNK = SPLIT_UNROLL * SPLIT_NT;
+    const dim3 grid((M + CHUNK - 1) / CHUNK, (unsigned)NG);
+    gn_apply_element_kernel<T><<<grid, SPLIT_NT, 0, s>>>(
+        static_cast<const T*>(x), scale, bias,
+        p.w_dtype == sdv::kBFloat16, part, p.parts, NG, static_cast<T*>(y),
+        M, (unsigned)p.hw, p.c / p.g, p.g, p.eps, p.silu);
+    return (int)cudaGetLastError();
+  }
+  if (p.route != SPLIT_TILE || p.tiles < 1 || p.tiles > 0x7fffffffLL ||
+      p.rows < 1 || p.rows > SPLIT_NT || p.cols < VEC || p.cols % VEC != 0)
+    return (int)cudaErrorInvalidValue;
+  gn_apply_tile_kernel<T, VEC><<<(unsigned)p.tiles, SPLIT_NT, 0, s>>>(
+      p, static_cast<const T*>(x), scale, bias, part, static_cast<T*>(y));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// x: (N, C, HW) contiguous (a rank's slab); partials: (N, G, 3) fp32
-// (count, mean, M2 of each group's run).  One kernel launch.  Returns a
-// cudaError_t value (0 = launched).
-extern "C" int sdv_groupnorm_partials(const void* x, void* partials, int N,
-                                      int C, long long HW, int G, int dtype,
-                                      void* stream) {
-  if (!split_shape_ok(N, C, HW, G)) return (int)cudaErrorInvalidValue;
+// sizeof(PartialsPlan) (which 0) or sizeof(ApplyPlan) (which 1): the
+// wrapper's structs are checked against them when it builds a plan
+extern "C" int sdv_groupnorm_split_plan_bytes(int which) {
+  return which == 0 ? (int)sizeof(PartialsPlan) : (int)sizeof(ApplyPlan);
+}
+
+// plan: a PartialsPlan; x: (N, C, HW) contiguous (a rank's slab);
+// partials: (N, G, 3) fp32 (count, mean, M2 of each group's run).  One
+// kernel launch.  Returns a cudaError_t value (0 = launched).
+extern "C" int sdv_groupnorm_partials(const void* plan, const void* x,
+                                      void* partials, void* stream) {
+  const PartialsPlan& p = *static_cast<const PartialsPlan*>(plan);
+  if (!split_shape_ok(p.n, p.c, p.hw, p.g)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partials);
-  if (dtype == sdv::kFloat32) return split_partials<float>(x, part, N, C, HW, G, s);
-  if (dtype == sdv::kBFloat16)
-    return split_partials<__nv_bfloat16>(x, part, N, C, HW, G, s);
+  if (p.dtype == sdv::kFloat32) return run_partials<float>(p, x, part, s);
+  if (p.dtype == sdv::kBFloat16)
+    return run_partials<__nv_bfloat16>(p, x, part, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// x, y: (N, C, HW) contiguous, one dtype; scale, bias: (C,) of w_dtype;
-// partials: (P, N, G, 3) fp32, rank p's at p.  One kernel launch.
-extern "C" int sdv_groupnorm_apply(const void* x, const void* scale,
-                                   const void* bias, int w_dtype,
-                                   const void* partials, int P, void* y,
-                                   int N, int C, long long HW, int G,
-                                   float eps, int silu, int dtype,
+// plan: an ApplyPlan; x, y: (N, C, HW) contiguous, one dtype; scale, bias:
+// (C,) of the plan's w_dtype; partials: (P, N, G, 3) fp32, rank p's at p.
+// One kernel launch.
+extern "C" int sdv_groupnorm_apply(const void* plan, const void* x,
+                                   const void* scale, const void* bias,
+                                   const void* partials, void* y,
                                    void* stream) {
-  if (!split_shape_ok(N, C, HW, G) || P < 1 ||
-      (w_dtype != sdv::kFloat32 && w_dtype != sdv::kBFloat16))
+  const ApplyPlan& p = *static_cast<const ApplyPlan*>(plan);
+  if (!split_shape_ok(p.n, p.c, p.hw, p.g) || p.parts < 1 ||
+      (p.w_dtype != sdv::kFloat32 && p.w_dtype != sdv::kBFloat16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w_bf16 = w_dtype == sdv::kBFloat16;
   const float* part = static_cast<const float*>(partials);
-  if (dtype == sdv::kFloat32)
-    return split_apply<float>(x, scale, bias, w_bf16, part, P, y, N, C, HW, G, eps,
-                        silu, s);
-  if (dtype == sdv::kBFloat16)
-    return split_apply<__nv_bfloat16>(x, scale, bias, w_bf16, part, P, y, N, C, HW,
-                                G, eps, silu, s);
+  if (p.dtype == sdv::kFloat32)
+    return run_apply<float>(p, x, scale, bias, part, y, s);
+  if (p.dtype == sdv::kBFloat16)
+    return run_apply<__nv_bfloat16>(p, x, scale, bias, part, y, s);
   return (int)cudaErrorInvalidValue;
 }

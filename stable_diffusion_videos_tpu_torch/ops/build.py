@@ -112,11 +112,15 @@ def _build_and_load() -> ctypes.CDLL:
     lib.sdv_groupnorm_silu.argtypes = [_P, _P, _P, _I, _P, _I, _I, _LL, _I,
                                        _F, _I, _I, _P]
     lib.sdv_groupnorm_silu.restype = _I
-    lib.sdv_groupnorm_partials.argtypes = [_P, _P, _I, _I, _LL, _I, _I, _P]
+    # the split GroupNorm takes its launch plan by pointer
+    # (ops/groupnorm.py PartialsPlan / ApplyPlan), then the tensors and
+    # the stream
+    lib.sdv_groupnorm_partials.argtypes = [_P] * 4
     lib.sdv_groupnorm_partials.restype = _I
-    lib.sdv_groupnorm_apply.argtypes = [_P, _P, _P, _I, _P, _I, _P, _I, _I,
-                                        _LL, _I, _F, _I, _I, _P]
+    lib.sdv_groupnorm_apply.argtypes = [_P] * 7
     lib.sdv_groupnorm_apply.restype = _I
+    lib.sdv_groupnorm_split_plan_bytes.argtypes = [_I]
+    lib.sdv_groupnorm_split_plan_bytes.restype = _I
     lib.sdv_flash_attention_backward.argtypes = [_P] * 10 + [
         _I, _I, _I, _I, _I, _F, _I, _P]
     lib.sdv_flash_attention_backward.restype = _I

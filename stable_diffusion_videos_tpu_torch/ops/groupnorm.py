@@ -29,11 +29,18 @@ rank order (Chan's formula) and normalises, scales, shifts and applies the
 SiLU.  Each has its kernel (``csrc/groupnorm.cu``) and its plain version,
 dispatched by device as above, with ``launches`` and ``by_shape`` counters
 (``(shape, silu, x dtype, weight dtype, groups, parts)`` for the apply).
+On the card each builds a launch plan at the first call of a key (the
+shapes, dtypes, groups, parts, eps, silu and card: ``partials_geometry``,
+``apply_geometry``), and a call then checks only what can differ (the
+devices, contiguity, the partials' shape) and hands the kernel the plan's
+address, the tensors' pointers and the current stream.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import math
 
 import torch
 
@@ -296,29 +303,228 @@ def groupnorm_apply_reference(x: torch.Tensor, scale: torch.Tensor,
 groupnorm_apply_reference.calls = 0
 
 
+# ---------------------------------------------------------------------------
+# split statistics: the kernels' launch plans, built once a key
+# ---------------------------------------------------------------------------
+#: routes (``SPLIT_*`` in csrc/groupnorm.cu): element by element (rows not
+#: 16-byte aligned), a warp a run and a cluster of blocks a run (partials),
+#: tiles of channel rows (apply)
+ELEMENT, WARP, BLOCK, TILE = 0, 1, 2, 3
+SPLIT_THREADS = 256
+MAX_CLUSTER = 8
+#: partials: a run of at most WARP_RUN_BYTES goes to one warp (one round
+#: of its lanes' 8 loads); a longer run is split over a cluster when there
+#: are fewer runs than SMs, each block owning at least MIN_SLICE_BYTES
+#: (sizes chosen on the card, H100 SXM: PERF.md)
+WARP_RUN_BYTES = 4 << 10
+MIN_SLICE_BYTES = 32 << 10
+#: apply: tiles of at most APPLY_TILE_BYTES, a channel a thread at most, and
+#: at least TILES_PER_SM a card's SM where the slab allows
+APPLY_TILE_BYTES = 32 << 10
+TILES_PER_SM = 4
+
+
+class PartialsPlan(ctypes.Structure):
+    """``PartialsPlan`` of csrc/groupnorm.cu, field for field."""
+    _fields_ = ([("hw", ctypes.c_longlong), ("slice", ctypes.c_longlong)]
+                + [(f, ctypes.c_int) for f in (
+                    "n", "c", "g", "dtype", "route", "grid", "threads",
+                    "cluster")])
+
+
+class ApplyPlan(ctypes.Structure):
+    """``ApplyPlan`` of csrc/groupnorm.cu, field for field."""
+    _fields_ = ([("hw", ctypes.c_longlong), ("tiles", ctypes.c_longlong)]
+                + [(f, ctypes.c_int) for f in (
+                    "n", "c", "g", "dtype", "w_dtype", "parts", "silu")]
+                + [("eps", ctypes.c_float)]
+                + [(f, ctypes.c_int) for f in (
+                    "route", "rows", "cols", "col_tiles", "chan_tiles")])
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, m: int) -> int:
+    return _cdiv(a, m) * m
+
+
+def partials_geometry(shape, elem_bytes: int, num_groups: int,
+                      sms: int) -> dict:
+    """The partials kernel's launch geometry for a slab of ``shape`` (N, C,
+    *spatial) of ``elem_bytes`` elements on a card of ``sms`` SMs:
+    ``PartialsPlan``'s fields but the dtype."""
+    n, c = shape[:2]
+    hw = math.prod(shape[2:])
+    vec = 16 // elem_bytes
+    m, ng = c // num_groups * hw, n * num_groups
+    run_bytes = m * elem_bytes
+    geo = dict(hw=hw, slice=0, n=n, c=c, g=num_groups, route=ELEMENT,
+               grid=ng, threads=SPLIT_THREADS, cluster=1)
+    if hw % vec or run_bytes >= 1 << 31:
+        return geo
+    if run_bytes <= WARP_RUN_BYTES:
+        # as many warps a block as spread the runs over every SM
+        warps = max(1, min(SPLIT_THREADS // 32, _cdiv(ng, sms)))
+        return {**geo, "route": WARP, "grid": _cdiv(ng, warps),
+                "threads": warps * 32}
+    # a block a run; with fewer runs than SMs, a cluster a run, wide enough
+    # that the runs fill twice the SMs, no block owning less than
+    # MIN_SLICE_BYTES, none empty
+    cs = 1 if ng >= sms else max(1, min(MAX_CLUSTER, _cdiv(2 * sms, ng),
+                                        run_bytes // MIN_SLICE_BYTES))
+    slice_ = _round_up(_cdiv(m, cs), vec)
+    cs = _cdiv(m, slice_)
+    return {**geo, "route": BLOCK, "slice": slice_, "grid": ng * cs,
+            "cluster": cs}
+
+
+def apply_geometry(shape, elem_bytes: int, num_groups: int,
+                   sms: int) -> dict:
+    """The apply kernel's launch geometry (``ApplyPlan``'s fields but the
+    dtypes, parts, eps and silu), as ``partials_geometry``.  A tile is rows
+    of whole channels when a channel fits APPLY_TILE_BYTES (no more rows
+    than leave TILES_PER_SM tiles an SM), else one channel's columns in
+    near-equal parts; one block a tile."""
+    n, c = shape[:2]
+    hw = math.prod(shape[2:])
+    vec = 16 // elem_bytes
+    geo = dict(hw=hw, tiles=0, n=n, c=c, g=num_groups, route=ELEMENT,
+               rows=0, cols=0, col_tiles=0, chan_tiles=0)
+    if hw % vec or c // num_groups * hw * elem_bytes >= 1 << 31:
+        return geo
+    row_bytes = hw * elem_bytes
+    if row_bytes <= APPLY_TILE_BYTES:
+        rows = max(1, min(APPLY_TILE_BYTES // row_bytes, SPLIT_THREADS, c,
+                          _cdiv(n * c, TILES_PER_SM * sms)))
+        cols, col_tiles = hw, 1
+    else:
+        rows = 1
+        cols = _round_up(_cdiv(hw, _cdiv(row_bytes, APPLY_TILE_BYTES)), vec)
+        col_tiles = _cdiv(hw, cols)
+    chan_tiles = _cdiv(c, rows)
+    return {**geo, "tiles": n * chan_tiles * col_tiles, "route": TILE,
+            "rows": rows, "cols": cols, "col_tiles": col_tiles,
+            "chan_tiles": chan_tiles}
+
+
+class _Launch:
+    """One split kernel's launch plan for one key: the C struct (kept
+    alive, passed by address), the entry point, the card's index, the
+    counter key and, for the partials, an output to copy the layout of
+    (``torch.empty_like`` of a tensor is cheaper on the host than
+    ``torch.empty`` of a shape)."""
+
+    __slots__ = ("plan", "ptr", "fn", "stream", "index", "key", "like",
+                 "parts_shape", "w_dtype", "cast")
+
+    def __init__(self, plan, fn, x, key):
+        self.plan, self.ptr, self.fn, self.key = (
+            plan, ctypes.addressof(plan), fn, key)
+        self.index = x.get_device()
+        # the current stream's handle, read at every call
+        self.stream = torch._C._cuda_getCurrentRawStream
+
+
+_PARTIALS_PLANS: dict = {}
+_APPLY_PLANS: dict = {}
+
+
+def _card(x: torch.Tensor):
+    """-> (kernel library, x's dtype code, the SM count of x's card)."""
+    lib = build.library()
+    for which, struct in enumerate((PartialsPlan, ApplyPlan)):
+        if lib.sdv_groupnorm_split_plan_bytes(which) != ctypes.sizeof(struct):
+            raise RuntimeError(f"{struct.__name__} does not match the "
+                               "kernel library's")
+    props = torch.cuda.get_device_properties(x.get_device())
+    return lib, build.dtype_code(x), props.multi_processor_count
+
+
+def _partials_key(x: torch.Tensor, num_groups: int) -> tuple:
+    """What a partials plan depends on: x's shape, dtype and card, the
+    groups."""
+    return x.shape, x.dtype, num_groups, x.get_device()
+
+
+def _apply_key(x, scale, bias, parts, num_groups, eps, silu) -> tuple:
+    """What an apply plan depends on: the shapes and dtypes of x and the
+    weights, x's card, the groups, the ranks' partials, eps and silu."""
+    return (x.shape, x.dtype, scale.shape, scale.dtype, bias.shape,
+            bias.dtype, num_groups, parts.shape[0], eps, silu,
+            x.get_device())
+
+
+def _partials_launch(key: tuple, x: torch.Tensor,
+                     num_groups: int) -> _Launch:
+    """Build the partials plan of ``key`` (x's), cache and return it."""
+    n, c = x.shape[:2]
+    if c % num_groups:
+        raise ValueError(f"{c} channels do not split into {num_groups} "
+                         "groups")
+    lib, code, sms = _card(x)
+    plan = PartialsPlan(dtype=code, **partials_geometry(
+        tuple(x.shape), x.element_size(), num_groups, sms))
+    launch = _Launch(plan, lib.sdv_groupnorm_partials, x,
+                     (tuple(x.shape), x.dtype, num_groups))
+    launch.like = torch.empty(n, num_groups, 3, device=x.device,
+                              dtype=torch.float32)
+    _PARTIALS_PLANS[key] = launch
+    return launch
+
+
+def _apply_launch(key, x, scale, bias, parts, num_groups, eps,
+                  silu) -> _Launch:
+    """Build the apply plan of ``key`` (this call's), cache and return
+    it."""
+    _check(x, scale, bias, num_groups)
+    n_parts = parts.shape[0]
+    parts_shape = (n_parts, x.shape[0], num_groups, 3)
+    if tuple(parts.shape) != parts_shape:
+        raise ValueError(f"partials {tuple(parts.shape)} do not match x "
+                         f"{tuple(x.shape)} at {num_groups} groups")
+    lib, code, sms = _card(x)
+    w_dtype = _weight_dtype(scale, bias)
+    plan = ApplyPlan(dtype=code, w_dtype=build.DTYPE_CODES[str(w_dtype)],
+                     parts=n_parts, silu=int(silu), eps=float(eps),
+                     **apply_geometry(tuple(x.shape), x.element_size(),
+                                      num_groups, sms))
+    launch = _Launch(plan, lib.sdv_groupnorm_apply, x,
+                     (tuple(x.shape), bool(silu), x.dtype, w_dtype,
+                      num_groups, n_parts))
+    launch.parts_shape, launch.w_dtype = parts_shape, w_dtype
+    launch.cast = scale.dtype != w_dtype or bias.dtype != w_dtype
+    _APPLY_PLANS[key] = launch
+    return launch
+
+
 def groupnorm_partials(x: torch.Tensor, num_groups: int = 32) -> torch.Tensor:
     """(N, C, *spatial) -> (N, G, 3) fp32 Welford partials of each group's
     run, by x's device: the kernel on the card, the plain version on the
-    CPU."""
+    CPU.  On the card the launch plan of (shape, dtype, groups, card) is
+    built at its first call; a call checks only x's contiguity."""
+    if x.is_cuda:
+        key = _partials_key(x, num_groups)
+        launch = _PARTIALS_PLANS.get(key)
+        if launch is None:
+            launch = _partials_launch(key, x, num_groups)
+        if not x.is_contiguous():
+            x = x.contiguous()
+        out = torch.empty_like(launch.like)
+        err = launch.fn(launch.ptr, x.data_ptr(), out.data_ptr(),
+                        launch.stream(launch.index))
+        if err:
+            build.check(err, "groupnorm partials kernel")
+        groupnorm_partials.launches += 1
+        groupnorm_partials.by_shape[launch.key] += 1
+        return out
     if x.shape[1] % num_groups:
         raise ValueError(f"{x.shape[1]} channels do not split into "
                          f"{num_groups} groups")
     if x.device.type == "cpu":
         return groupnorm_partials_reference(x, num_groups)
-    if x.device.type != "cuda":
-        raise ValueError(f"no GroupNorm kernel for device {x.device}")
-    lib = build.library()
-    code = build.dtype_code(x)
-    x = x.contiguous()
-    n, c = x.shape[:2]
-    out = torch.empty(n, num_groups, 3, device=x.device, dtype=torch.float32)
-    err = lib.sdv_groupnorm_partials(
-        x.data_ptr(), out.data_ptr(), n, c, x.numel() // (n * c), num_groups,
-        code, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "groupnorm partials kernel")
-    groupnorm_partials.launches += 1
-    groupnorm_partials.by_shape[(tuple(x.shape), x.dtype, num_groups)] += 1
-    return out
+    raise ValueError(f"no GroupNorm kernel for device {x.device}")
 
 
 groupnorm_partials.launches = 0
@@ -329,7 +535,39 @@ def groupnorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     parts: torch.Tensor, num_groups: int = 32,
                     eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
     """GroupNorm(+SiLU) of x with the statistics of the ranks' partials
-    ``parts`` (P, N, G, 3), merged in rank order, by x's device."""
+    ``parts`` (P, N, G, 3), merged in rank order, by x's device.  On the
+    card the launch plan of (shapes, dtypes, groups, P, eps, silu, card) is
+    built at its first call; a call checks the partials' shape and the
+    tensors' devices and contiguity."""
+    if x.is_cuda:
+        key = _apply_key(x, scale, bias, parts, num_groups, eps, silu)
+        launch = _APPLY_PLANS.get(key)
+        if launch is None:
+            launch = _apply_launch(key, x, scale, bias, parts, num_groups,
+                                   eps, silu)
+        if parts.shape != launch.parts_shape:
+            raise ValueError(f"partials {tuple(parts.shape)} do not match x "
+                             f"{tuple(x.shape)} at {num_groups} groups")
+        index = launch.index
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if (launch.cast or scale.get_device() != index
+                or bias.get_device() != index or not scale.is_contiguous()
+                or not bias.is_contiguous()):
+            scale, bias = (_as(w.detach(), launch.w_dtype, x.device)
+                           .contiguous() for w in (scale, bias))
+        if (parts.dtype != torch.float32 or parts.get_device() != index
+                or not parts.is_contiguous()):
+            parts = _as(parts, torch.float32, x.device).contiguous()
+        y = torch.empty_like(x)
+        err = launch.fn(launch.ptr, x.data_ptr(), scale.data_ptr(),
+                        bias.data_ptr(), parts.data_ptr(), y.data_ptr(),
+                        launch.stream(index))
+        if err:
+            build.check(err, "groupnorm apply kernel")
+        groupnorm_apply.launches += 1
+        groupnorm_apply.by_shape[launch.key] += 1
+        return y
     _check(x, scale, bias, num_groups)
     if tuple(parts.shape[1:]) != (x.shape[0], num_groups, 3):
         raise ValueError(f"partials {tuple(parts.shape)} do not match x "
@@ -337,27 +575,7 @@ def groupnorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return groupnorm_apply_reference(x, scale, bias, parts, num_groups,
                                          eps, silu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no GroupNorm kernel for device {x.device}")
-    lib = build.library()
-    code = build.dtype_code(x)
-    x = x.contiguous()
-    n, c = x.shape[:2]
-    w_dtype = _weight_dtype(scale, bias)
-    scale, bias = (_as(w.detach(), w_dtype, x.device).contiguous()
-                   for w in (scale, bias))
-    parts = _as(parts, torch.float32, x.device).contiguous()
-    y = torch.empty_like(x)
-    err = lib.sdv_groupnorm_apply(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        build.DTYPE_CODES[str(w_dtype)], parts.data_ptr(), parts.shape[0],
-        y.data_ptr(), n, c, x.numel() // (n * c), num_groups, float(eps),
-        int(silu), code, torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "groupnorm apply kernel")
-    groupnorm_apply.launches += 1
-    groupnorm_apply.by_shape[(tuple(x.shape), bool(silu), x.dtype, w_dtype,
-                              num_groups, parts.shape[0])] += 1
-    return y
+    raise ValueError(f"no GroupNorm kernel for device {x.device}")
 
 
 groupnorm_apply.launches = 0

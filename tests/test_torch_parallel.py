@@ -595,6 +595,33 @@ def test_mesh_phase_split_keys_are_checked(monkeypatch, layout):
     assert_checked(keys)
 
 
+def test_mesh_phase_sdxl_split_keys_are_checked(monkeypatch):
+    """SDXL-base's UNet at 1024² (128² latents), CFG batch 2, spatially
+    sharded over two thread ranks on the meta device, normalises through
+    the split kernels alone (N·G = 64 runs, fewer than the card's SMs), at
+    keys ``chip_smoke.py``'s phase 3 checks."""
+    keys = record_keys(monkeypatch)
+    with torch.device("meta"):
+        unet = UNet2DCondition(UNetConfig.sd_xl()).to(torch.bfloat16)
+        x, t = torch.empty(2, 4, 128, 128), torch.empty(2)
+        ctx = torch.empty(2, 77, 2048)
+        pooled, ids = torch.empty(2, 1280), torch.empty(2, 6)
+
+    def rank(mesh):
+        u = copy.deepcopy(unet)
+        shard_unet_spatially(u, mesh)
+        return u(x[..., mesh.rows(128, "model")], t, ctx,
+                 text_embeds=pooled, time_ids=ids)
+
+    run_ranks(2, rank)
+    split = {(n, k) for n, k in keys if n.startswith("groupnorm_")}
+    assert {n for n, _ in split} == {"groupnorm_partials", "groupnorm_apply"}
+    # each a rank's half of the width: (2, C, H, H / 2)
+    assert all(k[0][0] == 2 and k[0][2] == 2 * k[0][3] for _, k in split)
+    assert_checked(split)
+    assert "fused_groupnorm_silu" not in {n for n, _ in keys}
+
+
 @pytest.mark.parametrize("layout", ["tp", "spatial"])
 @pytest.mark.parametrize("addon", ["controlnet", "ip_adapter", "tome",
                                    "freeu"])
